@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Slope-timed generic (unfused) PDS chain at 4096^2 — the bench.py
-generic-raw leg in isolation, for iterating on VERDICT r3 task 4
-(240 -> >= 400 iters/s).
+generic-raw leg in isolation.
 
-Run ON THE TPU: python benchmarks/bench_generic.py
+Run on the GPU: python benchmarks/bench_generic.py
 """
 import os
 import sys

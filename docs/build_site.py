@@ -28,7 +28,6 @@ GUIDES = [
     ("THEORY", DOCS / "THEORY.md", "Theory"),
     ("EXTENDING", DOCS / "EXTENDING.md", "Extending"),
     ("PARITY", DOCS / "PARITY.md", "Reference parity"),
-    ("BENCH", DOCS / "BENCH.md", "Benchmarks"),
     ("REFERENCES", DOCS / "REFERENCES.md", "References"),
 ]
 

@@ -47,16 +47,12 @@ MODULES = [
     "pycsou_tpu.parallel.solvers",
     "pycsou_tpu.kernels.band",
     "pycsou_tpu.kernels.tv",
-    "pycsou_tpu.kernels.tvr",
-    "pycsou_tpu.kernels.conv2d",
-    "pycsou_tpu.kernels.sepgram",
-    "pycsou_tpu.kernels.fista",
-    "pycsou_tpu.kernels.langevin",
     "pycsou_tpu.utils.opnorm",
     "pycsou_tpu.utils.stats",
     "pycsou_tpu.utils.diagnostics",
     "pycsou_tpu.utils.checkpoint",
     "pycsou_tpu.utils.profiling",
+    "pycsou_tpu.utils.compile_cache",
     "pycsou_tpu.utils.misc",
 ]
 

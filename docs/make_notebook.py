@@ -24,9 +24,9 @@ cells = [
     MD("""
 # Introduction to pycsou_tpu
 
-`pycsou_tpu` is a TPU-native framework for solving **convex inverse
+`pycsou_tpu` is a JAX framework for solving **convex inverse
 problems** — the capabilities of [Pycsou](https://github.com/dhamm97/pycsou)
-re-designed around JAX/XLA and Pallas TPU kernels.  This notebook walks the
+re-designed around JAX/XLA.  This notebook walks the
 same arc as the reference's introduction notebook:
 
 1. matrix-free **linear operators** and their algebra,
@@ -36,8 +36,8 @@ same arc as the reference's introduction notebook:
 4. **scaling out** over a device mesh without changing the expression,
 5. **Bayesian uncertainty quantification** with proximal MCMC.
 
-Everything below runs on a virtual 8-device CPU mesh; on TPU hardware the
-same code dispatches to the fused Pallas engines (see `docs/BENCH.md`).
+Everything below runs on a virtual 8-device CPU mesh; on a GPU the same
+code runs unchanged (measurements in `PERF.md`).
 """),
     CODE("""
 import os
@@ -117,8 +117,8 @@ print(type(F).__name__, " diff_lipschitz:", round(float(F.diff_lipschitz), 4),
 `PDS` auto-tunes the step sizes from the reference's closed-form rules.
 On construction it also **pattern-matches the expression tree**: this
 (F, G, H, K) configuration is recognised as TV deconvolution and the
-iteration is delegated to the hand-fused engine — same iterates, ~6×
-faster on TPU hardware (on CPU it runs the XLA twin).
+iteration is delegated to the hand-fused solver — same iterates, with the
+data gradient through the fused convolution Gram.
 """),
     CODE("""
 from pycsou_tpu.opt import PDS
@@ -156,9 +156,9 @@ print("inpainting  ->", type(inpaint._fused).__name__,
 
 `with_shardings` turns the solve into an SPMD program over a mesh.  When
 the fused TV pattern matched AND the requested partition is spatial, the
-solve re-dispatches onto the hand-written per-shard engines
-(`DistributedTVDeconv2D`: ppermute halo exchange, per-shard Pallas
-kernels); anything else runs through XLA's GSPMD partitioner.  Iterates
+solve re-dispatches onto the hand-written distributed solver
+(`DistributedTVDeconv2D`: ppermute halo exchange, fused Gram per
+shard); anything else runs through XLA's GSPMD partitioner.  Iterates
 are identical either way.
 """),
     CODE("""
@@ -181,9 +181,7 @@ print("state sharded over", len(info_sp["x"].sharding.device_set), "devices")
 
 `PMYULA` samples the posterior `exp(-F(x) - G(x))` with a Moreau–Yosida
 unadjusted Langevin chain, streaming the MMSE estimate, pointwise
-standard deviation and P² quantiles on device.  On TPU the whole sample
-(Gram, prox blend, in-kernel PRNG noise, moment accumulators) fuses into
-a single kernel pass.
+standard deviation and P² quantiles on device, inside one jitted loop.
 """),
     CODE("""
 from pycsou_tpu.opt import PMYULA
@@ -200,13 +198,12 @@ print(f"90% credible band covers {100 * inside:.0f}% of the truth")
     MD("""
 ## Where to go next
 
-* `docs/TUTORIAL.md` — this walkthrough in prose, with the TPU-specific
-  performance notes.
+* `docs/TUTORIAL.md` — this walkthrough in prose.
 * `docs/THEORY.md` — the mathematical background (proximal calculus,
   primal-dual splitting, Moreau envelopes).
 * `docs/EXTENDING.md` — writing your own operators/functionals (the
   reference's plugin pattern).
-* `docs/BENCH.md` — the measured performance ladder on TPU v5e.
+* `PERF.md` — measurements on the card and their method.
 * `examples/` — runnable configurations for every benchmark problem.
 """),
 ]

@@ -3,22 +3,17 @@
 ``min_x ||M x - y||^2 + lam ||grad x||_{2,1} (+ i_{x>=0})`` where M keeps a
 random 40% of the pixels — the reference's Masking data term
 (sampling.py:125-196) under a TV prior.  The expression matcher recognises
-``SquaredL2Loss * Masking`` and rewrites the solve onto the diagonal-Gram
-fused engine ('sweepm': the whole PDS iteration in one kernel pass on TPU).
-The anisotropic flavour (``lam * L1Norm o Gradient`` — the reference's own
-PDS doc example, proxalgs.py:91-119) rides the same engines.
+``SquaredL2Loss * Masking`` and rewrites the solve onto TVDeconvolution's
+diagonal-Gram mode (elementwise data gradient, one fused pass per
+iteration).  The anisotropic flavour (``lam * L1Norm o Gradient`` — the
+reference's own PDS doc example, proxalgs.py:91-119) rides the same path.
 
 Run: python examples/inpainting_tv.py
 """
-import os as _os
 import sys as _sys
 from pathlib import Path as _Path
 
 _sys.path.insert(0, str(_Path(__file__).resolve().parent.parent))  # repo root
-if _os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 import jax.numpy as jnp
@@ -67,7 +62,7 @@ def main():
         info = solver.solve()
         results[name] = np.asarray(info["x"])
         print(
-            f"{name}: engine={solver._fused.stencil_mode} iso={solver._fused.iso} "
+            f"{name}: fused={type(solver._fused).__name__} iso={solver._fused.iso} "
             f"iters={info.n_iter} converged={info.converged}"
         )
 

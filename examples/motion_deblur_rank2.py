@@ -2,22 +2,16 @@
 
 Real camera blurs are rarely isotropic Gaussians: a defocus disc plus a
 motion streak gives a PSF of numerical rank 2-3.  The flagship
-``TVDeconvolution`` detects the low-rank structure automatically and runs
-the fused rank-r Pallas engine (``kernels/tvr.py`` megar on TPU: forward
-sweep -> adjoint sweep -> PDS stencil in ONE kernel pass per iteration);
-on CPU it falls back to the identical-math XLA twin.
+``TVDeconvolution`` picks the data-gradient route from the PSF's numerical
+rank: banded passes for rank 1, the FFT Gram otherwise (the faster route on
+an H100, PERF.md).
 
 Run: python examples/motion_deblur_rank2.py
 """
-import os as _os
 import sys as _sys
 from pathlib import Path as _Path
 
 _sys.path.insert(0, str(_Path(__file__).resolve().parent.parent))  # repo root
-if _os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", "cpu")
 
 import time
 
@@ -57,7 +51,7 @@ def main():
         (n, n), y, lam=0.002, filt=h, nonneg=True, max_iter=300,
         accuracy_threshold=1e-6, verbose=100,
     )
-    print(f"engine: {solver.stencil_mode}")
+    print(f"gram: {type(solver.gram).__name__}")
     t0 = time.perf_counter()
     info = solver.solve()
     x = np.asarray(info["x"])

@@ -2,15 +2,10 @@
 (operators -> functionals -> solve -> uncertainty) end to end.
 Run: python examples/tutorial.py
 """
-import os as _os
 import sys as _sys
 from pathlib import Path as _Path
 
 _sys.path.insert(0, str(_Path(__file__).resolve().parent.parent))  # repo root
-if _os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 import jax

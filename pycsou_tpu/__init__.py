@@ -1,10 +1,10 @@
-"""pycsou_tpu — TPU-native convex inverse-problem solver framework.
+"""pycsou_tpu — convex inverse-problem solver framework on JAX/XLA.
 
-Brand-new JAX/XLA/Pallas/pjit framework with the capabilities of the reference
-Pycsou library (matrix-free operator algebra, proximable/differentiable
-functional calculus, proximal-splitting solvers), re-designed TPU-first:
-every matvec/prox/solver-iteration is a jitted XLA computation; stencils and
-fused hot loops use Pallas kernels; multi-device scaling uses
+A JAX framework with the capabilities of the reference Pycsou library
+(matrix-free operator algebra, proximable/differentiable functional
+calculus, proximal-splitting solvers), re-designed for accelerators: every
+matvec/prox/solver-iteration is a jitted XLA computation; stencils and hot
+loops fuse into few XLA passes; multi-device scaling uses
 ``jax.sharding.Mesh`` + collectives.
 """
 

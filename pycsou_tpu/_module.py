@@ -19,7 +19,7 @@ from typing import Any, Tuple
 
 import jax
 
-__all__ = ["Module", "static_field", "field", "strip_pallas"]
+__all__ = ["Module", "static_field", "field"]
 
 _STATIC_MARK = "pycsou_tpu_static"
 
@@ -133,39 +133,3 @@ class Module:
             if v is not None and not callable(v):
                 parts.append(f"{n}={v!r}")
         return f"{cls}({', '.join(parts)})"
-
-
-def strip_pallas(obj):
-    """Recursively replace every Module in ``obj`` (a Module, or a container
-    of Modules) with its GSPMD-safe twin.
-
-    ``pallas_call`` does not partition under GSPMD sharding constraints —
-    XLA silently all-gathers the full operands onto every device around the
-    kernel — so the generic ``solver.with_shardings`` path must route every
-    operator through plain-XLA computations.  Modules opt in by defining
-    ``_without_pallas(self) -> Module`` returning a copy whose ``apply``/
-    ``adjoint``/``step`` never reach a ``pallas_call`` (e.g. Convolve2D
-    zeroing its fused-sweep matvec plans).  Containers (tuple/list/dict) and
-    nested Module fields are walked; arrays and other leaves pass through."""
-    if isinstance(obj, Module):
-        if hasattr(type(obj), "_without_pallas"):
-            obj = obj._without_pallas()
-        changes = {}
-        for n in obj._dyn_fields + obj._static_fields:
-            v = getattr(obj, n, None)
-            nv = strip_pallas(v)
-            if nv is not v:
-                changes[n] = nv
-        return obj.replace(**changes) if changes else obj
-    if isinstance(obj, tuple):
-        vals = [strip_pallas(v) for v in obj]
-        if any(a is not b for a, b in zip(vals, obj)):
-            return type(obj)(vals) if getattr(obj, "_fields", None) is None else type(obj)(*vals)
-        return obj
-    if isinstance(obj, list):
-        vals = [strip_pallas(v) for v in obj]
-        return vals if any(a is not b for a, b in zip(vals, obj)) else obj
-    if isinstance(obj, dict):
-        vals = {k: strip_pallas(v) for k, v in obj.items()}
-        return vals if any(vals[k] is not obj[k] for k in obj) else obj
-    return obj

@@ -1,7 +1,7 @@
-"""Matrix-free linear operator algebra, TPU-native.
+"""Matrix-free linear operator algebra.
 
 Re-design of the reference ``LinearOperator`` (/root/reference/pycsou/core/
-linop.py:21-629).  Key TPU-first departures:
+linop.py:21-629).  Key departures:
 
 * ``adjoint`` defaults to ``jax.linear_transpose`` of ``apply`` (the reference
   hand-writes every adjoint); closed-form overrides exist only where a fused
@@ -141,7 +141,7 @@ class LinearOperator(DifferentiableMap):
     # -- spectral estimation (on-device) ----------------------------------
     def opnorm(self, maxiter: int = 128, tol: float = 1e-6, key: int = 0) -> float:
         """Largest singular value via jitted power iteration on ``A^H A``
-        (TPU-native replacement for ARPACK ``svds(k=1)``, linop.py:279-321)."""
+        (replacement for ARPACK ``svds(k=1)``, linop.py:279-321)."""
         from pycsou_tpu.utils.opnorm import power_iteration
 
         return float(power_iteration(self, maxiter=maxiter, tol=tol, key=key))

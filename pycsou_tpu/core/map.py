@@ -1,11 +1,11 @@
 """Nonlinear map calculus: shapes, arithmetic, Lipschitz propagation.
 
-TPU-native re-design of the reference's ``Map`` / ``DifferentiableMap``
+Re-design of the reference's ``Map`` / ``DifferentiableMap``
 hierarchy (/root/reference/pycsou/core/map.py:20-610).  Differences by design:
 
 * Maps act on nd-arrays (``dim_shape`` / ``codim_shape`` tuples) instead of
-  flat vectors, so images stay 2-D and stencil/conv kernels can tile onto the
-  TPU's VPU/MXU.  ``shape == (codim_size, dim_size)`` is kept for parity.
+  flat vectors, so images stay 2-D and stencil/conv passes keep their
+  natural layout.  ``shape == (codim_size, dim_size)`` is kept for parity.
 * ``apply`` is a *pure jittable function*; arithmetic (`+ - * @ ** /`) builds
   pytree-registered wrapper nodes whose dispatch cost is paid once at trace
   time, not per iteration — the composed expression compiles to a single fused
@@ -138,7 +138,7 @@ class Map(Module):
 
     # -- batching ----------------------------------------------------------
     def apply_batched(self, xs: jax.Array) -> jax.Array:
-        """Vectorised apply over a leading batch axis (TPU-native replacement
+        """Vectorised apply over a leading batch axis (replacement
         for the reference's ``apply_along_axis``, map.py:131)."""
         return jax.vmap(self.apply)(xs)
 

@@ -1,7 +1,7 @@
 """Base functionals: explicit linear functionals, indicators, nulls, Lp-norm
 machinery, separable stacks.
 
-TPU-native equivalent of /root/reference/pycsou/func/base.py:21-240.  The
+Equivalent of the reference's pycsou/func/base.py:21-240.  The
 joblib-parallel prox of ``ProxFuncHStack`` (base.py:80-89) becomes a traced
 per-block prox that XLA fuses (and shards across devices via the parallel
 layer); no process pools.

@@ -1,7 +1,7 @@
 """Loss functionals: norms/balls precomposed with a data shift, plus KL
 divergence.
 
-TPU-native equivalent of /root/reference/pycsou/func/loss.py (689 LoC).
+Equivalent of the reference's pycsou/func/loss.py (689 LoC).
 Losses are built by the shift rule ``phi(x - y)`` — the factories return
 prox/grad-preserving shifted functionals (reference loss.py:20-120).
 """
@@ -198,14 +198,6 @@ class LeastSquaresLoss(DifferentiableFunctional):
         return jnp.real(jnp.vdot(r, r))
 
     def jacobianT(self, x):
-        gf = getattr(self._gram, "grad_fused", None)
-        if gf is not None:
-            # fused Gram + subtraction: one pallas pass, 3 HBM streams
-            # (ops/conv.py SeparableConvGram2D.grad_fused); None when the
-            # plan doesn't qualify (CPU, GSPMD-stripped twin, odd shapes)
-            out = gf(jnp.asarray(x), self._atb)
-            if out is not None:
-                return out
         return 2.0 * (self._gram.apply(jnp.asarray(x)) - self._atb)
 
     @property

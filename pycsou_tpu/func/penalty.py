@@ -1,6 +1,6 @@
 """Penalty functionals: norms, balls, barriers, entropy, quadratic forms.
 
-TPU-native equivalent of /root/reference/pycsou/func/penalty.py (991 LoC).
+Equivalent of the reference's pycsou/func/penalty.py (991 LoC).
 Every ``apply``/``prox``/``gradient`` is a pure jittable function; host-side
 root-finding in the reference (brentq for SquaredL1Norm 'root' and the l1-ball
 projection, penalty.py:300-309 / math/prox.py:158-164) is replaced by
@@ -305,7 +305,7 @@ class L21Norm(ProximableFunctional):
     Two grouping modes, both with group-wise shrinkage prox
     (penalty.py:551-557):
 
-    * ``axis`` mode (TPU-native, used for isotropic TV): groups are the
+    * ``axis`` mode (used for isotropic TV): groups are the
       fibres along ``axis`` of an nd input, e.g. the 2-vector of forward
       differences at each pixel of a ``(2, H, W)`` gradient field;
     * ``groups`` mode (reference-parity): an integer label per entry, reduced

@@ -1,1 +1,2 @@
-from pycsou_tpu.kernels.tv import tv_pds_stencil_step, tv_pds_stencil_step_xla
+"""Plain-XLA building blocks of the hot loops: banded convolution passes
+(band.py) and the fused TV stencil step (tv.py)."""

@@ -1,18 +1,17 @@
-"""Banded (block-Toeplitz) 1-D convolutions as MXU matmuls.
+"""Banded (block-Toeplitz) 1-D convolutions as matmuls.
 
 A 'same'-mode 1-D convolution with a compact K-tap filter is a banded
 Toeplitz matrix.  Left-shifting the input by ``K-1-offset`` makes the band
 purely causal, so tiling the signal axis into 128-wide tiles turns the
 convolution into a block-BIdiagonal matrix with TWO repeating 128x128
 blocks — the whole convolution is two batched (B*nT, 128) @ (128, 128)
-matmuls that run on the MXU at full tile utilisation, instead of an FFT
-roundtrip (the backend FFT measures ~10x off the HBM roofline,
-docs/BENCH.md) or a single-channel ``lax.conv`` (VPU-bound on TPU).
+matmuls instead of an FFT roundtrip or a single-channel ``lax.conv``.
 
-This is the engine behind the separable/low-rank convolution Gram
-(ops/conv.py ``SeparableConvGram2D``): for a rank-r PSF the Gram ``A^H A``
-is 4r banded passes; at 4096^2 with a rank-1 Gaussian PSF that is several
-times faster than the FFT Gram.
+This is the engine behind the separable convolution Gram (ops/conv.py
+``SeparableConvGram2D``): for a rank-1 PSF the Gram ``A^H A`` is one
+(2K-1)-tap banded pass per axis.  On an H100 (700 W) at 4096^2 with a
+15x15 Gaussian that Gram takes 0.72 ms against 1.05 ms for the FFT Gram
+(PERF.md); for rank 2 the 4r-pass form loses to the FFT (2.4 ms).
 
 Zero-boundary semantics are exact: the pad tiles are zero, which is
 precisely the zero-padded 'same' convolution's band clipping (the
@@ -42,11 +41,10 @@ __all__ = [
     "CHAN_TILE",
 ]
 
-TILE = 128  # MXU systolic array edge
+TILE = 128  # block edge of the banded matmuls (max tap reach per block)
 
-# 3-pass bf16 matmuls: ~1e-5 relative error at a fraction of the cost of
-# full f32 emulation (HIGHEST, 6 passes).  CPU ignores precision (native
-# f32), so the exactness tests on the virtual mesh see exact results.
+# full float32 matmuls (HIGHEST): no reduced-precision (TF32 / bf16) passes,
+# so the banded route matches the FFT route to float32 rounding
 DEFAULT_PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -173,14 +171,14 @@ def gram_band_axis(x: jax.Array, gplan, axis: int, precision=None) -> jax.Array:
 # The block-bidiagonal matmul (band_conv_cols) must left-shift the input by
 # `lead` lanes — an unaligned lane pad that costs a full extra HBM copy of
 # the array, and its two matmuls contract over 128-wide blocks even when the
-# band halfwidth is ~14 (>90% of the MXU work multiplies zeros).  Viewing the
+# band halfwidth is ~14 (>90% of the matmul work multiplies zeros).  Viewing the
 # lane axis as (W/tile, tile) and treating the `tile` lanes of each chunk as
 # FEATURE channels turns the band into a window-3 tile->tile-channel
 # convolution: out_chunk[t] = sum_{d in -1..1} x_chunk[t+d] @ C_d — an
-# implicit GEMM that XLA lowers onto the MXU with no pad copy and with
-# MXU work proportional to `tile` instead of 128.  Measured at 4096^2,
-# K=15 Gram band (docs/BENCH.md): 1.36 ms -> 0.95 ms, exact (HIGHEST) to
-# 1.4e-7 vs the block-bidiagonal pass.
+# implicit GEMM that XLA lowers with no pad copy and with matmul work
+# proportional to `tile` instead of 128.  On an H100 (700 W), 4096^2, K=15
+# rank-1 Gram: 0.72 ms with this lane pass vs 0.77 ms with the
+# block-bidiagonal one (PERF.md); exact (HIGHEST) to float32 rounding.
 # ---------------------------------------------------------------------------
 
 CHAN_TILE = 16  # smallest tile covering halfwidth<=31 bands; fastest measured
@@ -243,7 +241,7 @@ def gram_chanconv_cols(x: jax.Array, Kc, E, L: int, precision=None) -> jax.Array
 def band_conv_cols(x: jax.Array, plan, precision=None) -> jax.Array:
     """Banded 'same' convolution along the LAST axis of a 2-D array.
 
-    ``plan`` from :func:`make_band_blocks`; two batched MXU matmuls.
+    ``plan`` from :func:`make_band_blocks`; two batched matmuls.
     """
     b0, b1, lead = plan
     b0 = jnp.asarray(b0, x.dtype)

@@ -1,7 +1,7 @@
-"""Pallas TPU kernel: fused TV primal-dual stencil update.
+"""Fused TV primal-dual stencil update.
 
 One Condat-Vu iteration of the TV-regularised problem splits into (a) the
-data-term gradient (FFT-dominated, see ops/_gram.py) and (b) a chain of
+data-term gradient (the convolution Gram, ops/conv.py) and (b) a chain of
 stencil + prox + momentum elementwise steps::
 
     x_t = P(x - tau*g - tau*div z)          # P = clip to >= 0 (optional)
@@ -11,51 +11,18 @@ stencil + prox + momentum elementwise steps::
     x'  = rho x_t + (1-rho) x
     z'  = rho z_t + (1-rho) z
 
-Part (b) touches 6 full-size arrays; left to XLA it costs several HBM
-round-trips.  This kernel fuses the whole chain into ONE pass over
-row-tiles with an 8-row halo (Element-indexed overlapping blocks), so each
-array is read/written exactly once per iteration.
+Part (b) reads 4 full-size arrays (x, g, z0, z1) and writes 3; written as
+plain jnp, XLA fuses the whole chain (and the data gradient's epilogue) into
+one pass.  A hand-written Pallas (Triton) version of this pass was measured
+slower than XLA's fusion on an H100 and removed (PERF.md, Findings).
 
 Boundary conventions match ops/diff.py exactly: forward differences with a
 zero last row/column, divergence ``(D^T y)_j = y_{j-1} - y_j`` with
-``y_{-1} = y_{last} = 0`` (the last dual row/col is kept identically zero —
-an invariant this kernel enforces).
-
-The pure-XLA twin ``tv_pds_stencil_step_xla`` is the correctness oracle and
-the CPU fallback.
+``y_{-1} = y_{last} = 0``.
 """
 from __future__ import annotations
 
-import functools
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-try:  # Element-indexed (overlapping) blocks: internal but stable in practice
-    from jax._src.pallas.core import Element as _Element
-except ImportError:  # pragma: no cover
-    _Element = None
-
-HALO = 8  # TPU sublane alignment: halo tiles must stay 8-row aligned
-
-
-def pallas_available() -> bool:
-    """True iff the Element-indexed block API this kernel needs exists in the
-    running JAX build.  Callers must fall back to the XLA twin otherwise."""
-    return _Element is not None
-
-
-def _roll_lanes(a, shift: int):
-    """Circular shift along the lane (last) axis; callers mask the wrapped
-    column.  pltpu.roll requires a non-negative shift."""
-    return pltpu.roll(a, shift % a.shape[1], axis=1)
-
-
-def _row_mask_last_zero(n_rows_global: int, row0, tile_rows: int, width: int, dtype):
-    """(tile_rows, width) mask that is 0 on the globally-last row."""
-    rows = jax.lax.broadcasted_iota(jnp.int32, (tile_rows, width), 0) + row0
-    return jnp.where(rows == n_rows_global - 1, 0.0, 1.0).astype(dtype)
 
 
 def _dual_prox(v0, v1, lam, iso: bool):
@@ -63,9 +30,8 @@ def _dual_prox(v0, v1, lam, iso: bool):
     radius-``lam`` L2 ball JOINTLY over (v0, v1) for ISOTROPIC TV (L21 over
     the gradient axis — the flagship configuration), or the ``[-lam, lam]``
     box independently per component for ANISOTROPIC TV (``lam * L1Norm o
-    Gradient`` — the reference's own PDS doc example,
-    /root/reference/pycsou/opt/proxalgs.py:91-119).  ``iso`` is static, so
-    each variant compiles to its own kernel with zero overhead."""
+    Gradient``).  ``iso`` is static, so each variant compiles to its own
+    fusion with zero overhead."""
     if iso:
         mag = jnp.sqrt(v0 * v0 + v1 * v1)
         scale = lam / jnp.maximum(mag, lam)
@@ -73,1646 +39,23 @@ def _dual_prox(v0, v1, lam, iso: bool):
     return jnp.clip(v0, -lam, lam), jnp.clip(v1, -lam, lam)
 
 
-def _tv_kernel(x_ref, g_ref, z0_ref, z1_ref, xo_ref, z0o_ref, z1o_ref, *, R, H, W, tau, sigma, rho, lam, nonneg, iso=True):
-    i = pl.program_id(0)
-    row0 = i * R  # global row of the first core row
-
-    # halo-extended tiles: rows [row0 - HALO, row0 + R + HALO) of padded arrays
-    x = x_ref[...]
-    g = g_ref[...]
-    z0 = z0_ref[...]
-    z1 = z1_ref[...]
-
-    c = HALO  # core start inside the tile
-    # 8-row-aligned work window (core + HALO extra rows below); Mosaic's
-    # tiler miscompiles odd-height intermediates, so never materialise R+1
-    Rw = R + HALO
-    xw = x[c : c + Rw]
-    gw = g[c : c + Rw]
-    z0w = z0[c : c + Rw]
-    z0up = z0[c - 1 : c - 1 + Rw]  # z0[j-1]
-    z1w = z1[c : c + Rw]
-
-    def lastcol_mask(nrows):
-        colw = jax.lax.broadcasted_iota(jnp.int32, (nrows, W), 1)
-        return jnp.where(colw == W - 1, 0.0, 1.0).astype(x.dtype)
-
-    def firstcol_mask(nrows):
-        colw = jax.lax.broadcasted_iota(jnp.int32, (nrows, W), 1)
-        return jnp.where(colw == 0, 0.0, 1.0).astype(x.dtype)
-
-    # enforce the dual invariants: last global row of z0 / last col of z1 = 0.
-    # NOTE: every mask is built at its exact use shape — Mosaic miscompiles
-    # some slice-of-computed-mask patterns.
-    z0w = z0w * _row_mask_last_zero(H, row0, Rw, W, x.dtype)
-    z0up = z0up * _row_mask_last_zero(H, row0 - 1, Rw, W, x.dtype)
-    z1w = z1w * lastcol_mask(Rw)
-
-    # div z = (z0[j-1] - z0[j]) + (z1[:, k-1] - z1[:, k]); column shifts via
-    # lane roll + first-column mask (width-1 slices crash the Mosaic tiler)
-    z1_left = _roll_lanes(z1w, 1) * firstcol_mask(Rw)
-    div = (z0up - z0w) + (z1_left - z1w)
-
-    x_t = xw - tau * gw - tau * div
-    if nonneg:
-        x_t = jnp.maximum(x_t, 0.0)
-
-    u = 2.0 * x_t - xw
-    # forward differences of u on the R core rows (aligned-length slices)
-    du_r = (u[1 : 1 + R] - u[:R]) * _row_mask_last_zero(H, row0, R, W, x.dtype)
-    uc = u[:R]
-    lc_R = lastcol_mask(R)
-    u_right = _roll_lanes(uc, -1) * lc_R
-    du_c = (u_right - uc) * lc_R
-
-    v0 = z0w[:R] + sigma * du_r
-    v1 = z1w[:R] + sigma * du_c
-    z0_t, z1_t = _dual_prox(v0, v1, lam, iso)
-
-    xo_ref[...] = rho * x_t[:R] + (1.0 - rho) * xw[:R]
-    z0o_ref[...] = rho * z0_t + (1.0 - rho) * z0w[:R]
-    z1o_ref[...] = rho * z1_t + (1.0 - rho) * z1w[:R]
-
-
-def _pick_block_rows(H: int, W: int) -> int:
-    # Keep one (R + 2*HALO) x W f32 tile under ~0.8MB: with ~14 live
-    # buffers (inputs, outputs, intermediates) that bounds the VMEM working
-    # set near 11MB.  Larger tiles trip Mosaic at W = 4096.  Returns 0 when
-    # no feasible tiling exists (H has no 8..128 divisor, or even the 8-row
-    # tile would blow the Mosaic budget) — callers fall through to the XLA
-    # twin instead of silently leaving rows unwritten.
-    for r in (128, 64, 32, 16, 8):
-        if H % r == 0 and (r + 2 * HALO) * W * 4 <= 820_000:
-            return r
-    return 0
-
-
-def element_available(H: int, W: int) -> bool:
-    """True when the element-halo stencil kernel has a feasible tiling."""
-    return _pick_block_rows(H, W) > 0
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tau", "sigma", "rho", "lam", "nonneg", "interpret", "iso")
-)
-def tv_pds_stencil_step(x, z, g, *, tau: float, sigma: float, rho: float, lam: float, nonneg: bool = True, interpret: bool = False, iso: bool = True):
-    """Fused stencil/prox part of one TV PDS iteration (Pallas TPU kernel).
-
-    x: (H, W); z: (2, H, W); g = grad of the data term at x.
-    Returns (x_new, z_new).  Requires H divisible by 8.
-    """
-    if _Element is None:
-        raise RuntimeError(
-            "this JAX build lacks jax._src.pallas.core.Element (overlapping "
-            "block indexing); use tv_pds_stencil_step_xla instead"
-        )
-    H, W = x.shape
-    R = _pick_block_rows(H, W)
-    if R == 0:
-        raise ValueError(f"no element tiling for H={H}, W={W} (H needs an 8..128 divisor within the VMEM budget)")
-    pad = ((HALO, HALO), (0, 0))
-    xp = jnp.pad(x, pad)
-    gp = jnp.pad(g, pad)
-    z0p = jnp.pad(z[0], pad)
-    z1p = jnp.pad(z[1], pad)
-
-    E = _Element
-    in_spec = pl.BlockSpec((E(R + 2 * HALO, (0, 0)), E(W, (0, 0))), lambda i: (i * R, 0))
-    out_spec = pl.BlockSpec((R, W), lambda i: (i, 0))
-
-    kern = functools.partial(
-        _tv_kernel, R=R, H=H, W=W, tau=float(tau), sigma=float(sigma), rho=float(rho), lam=float(lam), nonneg=bool(nonneg), iso=bool(iso)
-    )
-    x_new, z0_new, z1_new = pl.pallas_call(
-        kern,
-        grid=(H // R,),
-        in_specs=[in_spec, in_spec, in_spec, in_spec],
-        out_specs=[out_spec, out_spec, out_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((H, W), x.dtype),
-            jax.ShapeDtypeStruct((H, W), x.dtype),
-            jax.ShapeDtypeStruct((H, W), x.dtype),
-        ],
-        interpret=interpret,
-    )(xp, gp, z0p, z1p)
-    return x_new, jnp.stack([z0_new, z1_new], axis=0)
-
-
-# ---------------------------------------------------------------------------
-# Software-pipelined row sweep (the fastest stencil path)
-#
-# The Element-halo kernel above re-reads (R + 2*HALO)/R = 1.5x of every input
-# per iteration because each overlapping block is DMA'd independently.  The
-# sweep kernel instead reads PLAIN (R, W) tiles (each array streams from HBM
-# exactly once), keeps the previous tile + an 8-row z0 tail resident in VMEM
-# scratch, and emits output tile i-1 at grid step i (delayed output: the
-# "+1 row below" halo comes from the CURRENT input tile).  Grid runs
-# sequentially (dimension_semantics='arbitrary') so the scratch carry is
-# well-defined.  Measured at 4096^2 on TPU v5e: 1.42 ms vs 2.82 ms for the
-# Element-halo kernel (7-stream HBM floor: 1.19 ms) — and bit-exact vs the
-# XLA twin.
-# ---------------------------------------------------------------------------
-
-
-def _pick_sweep_rows(H: int, W: int) -> int:
-    # plain (R, W) f32 tiles under the ~0.8MB Mosaic budget; R must divide H
-    for r in (32, 16, 8):
-        if H % r == 0 and r * W * 4 <= 820_000:
-            return r
-    return 0
-
-
-def _tv_sweep_kernel(off_ref, *refs, R, nT, H, W, tau, sigma, rho, lam, nonneg,
-                     core_lo, core_hi, shard, iso=True):
-    """Single-chip AND shard-aware fused stencil sweep.  ``off_ref`` (SMEM,
-    (1,) i32) = GLOBAL row of local row 0 (0 single-chip); ``H`` the GLOBAL
-    height; ``core_lo``/``core_hi`` the inclusive output-tile range that is
-    written / stats-accumulated.  With ``shard=True`` the neighbour halos
-    arrive as EIGHT (R, W) inputs (x/g/z0/z1 top+bottom, selected in-VMEM)
-    and the outputs are core-shaped (see :func:`_tv_mega2_kernel`)."""
-    i = pl.program_id(0)
-    off = off_ref[0]
-    if shard:
-        (x_ref, g_ref, z0_ref, z1_ref, xt_r, xb_r, gt_r, gb_r,
-         z0t_r, z0b_r, z1t_r, z1b_r,
-         xo, z0o, z1o, so, s_x, s_g, s_z0, s_z1) = refs
-    else:
-        (x_ref, g_ref, z0_ref, z1_ref,
-         xo, z0o, z1o, so, s_x, s_g, s_z0, s_z1) = refs
-
-    cur_x = x_ref[...]
-    cur_g = g_ref[...]
-    cur_z0 = z0_ref[...]
-    cur_z1 = z1_ref[...]
-    if shard:
-        t = jnp.minimum(i, nT - 1)  # ext tile being read
-        first_t = t == 0
-        last_t = t == nT - 1
-
-        def _sel(body, top_r, bot_r):
-            return jnp.where(first_t, top_r[...], jnp.where(last_t, bot_r[...], body))
-
-        cur_x = _sel(cur_x, xt_r, xb_r)
-        cur_g = _sel(cur_g, gt_r, gb_r)
-        cur_z0 = _sel(cur_z0, z0t_r, z0b_r)
-        cur_z1 = _sel(cur_z1, z1t_r, z1b_r)
-
-    @pl.when(i > 0)
-    def _compute():
-        j = i - 1
-        row0 = j * R + off  # GLOBAL row of the output tile's first row
-
-        # rows [row0, row0 + R + 8): previous tile from scratch + the first 8
-        # rows of the current tile (only row R is mathematically used; the
-        # rest is 8-row-alignment padding whose uses are masked)
-        xw = jnp.concatenate([s_x[...], cur_x[:8]], axis=0)
-        gw = jnp.concatenate([s_g[...], cur_g[:8]], axis=0)
-        z0w = jnp.concatenate([s_z0[8:], cur_z0[:8]], axis=0)
-        z0up = jnp.concatenate([s_z0[7 : R + 8], cur_z0[:7]], axis=0)  # rows - 1
-        z1w = jnp.concatenate([s_z1[...], cur_z1[:8]], axis=0)
-        x_n, z0_n, z1_n = _pds_stencil(
-            xw, gw, z0w, z0up, z1w, row0, R, H, W, tau, sigma, rho, lam, nonneg,
-            iso=iso,
-        )
-        in_core = jnp.logical_and(j >= core_lo, j <= core_hi)
-
-        @pl.when(in_core if shard else i > 0)
-        def _write():
-            xo[...] = x_n
-            z0o[...] = z0_n
-            z1o[...] = z1_n
-
-        @pl.when(in_core)
-        def _stats():
-            _stats_update(
-                so, [(x_n, xw[:R]), (z0_n, z0w[:R]), (z1_n, z1w[:R])]
-            )
-
-    # scratch carry: z0 additionally keeps an 8-row tail of the previous tile
-    # (the divergence needs z0[row - 1]); zero it at the global top boundary
-    @pl.when(i == 0)
-    def _init():
-        s_z0[:8] = jnp.zeros((8, W), cur_z0.dtype)
-        so[...] = jnp.zeros((8, 128), jnp.float32)
-
-    @pl.when(i > 0)
-    def _tail():
-        s_z0[:8] = s_z0[R : R + 8]
-
-    @pl.when(i < nT)
-    def _carry():
-        s_x[...] = cur_x
-        s_g[...] = cur_g
-        s_z0[8:] = cur_z0
-        s_z1[...] = cur_z1
-
-
-def _sweep_call(x, g, z0, z1, off, *, R, H_global, core_lo, core_hi,
-                tau, sigma, rho, lam, nonneg, interpret, vma=None, halos=None,
-                iso=True):
-    """Shared pallas_call for the single-chip and shard-aware sweep paths.
-    Shard mode (``halos = (xt, xb, gt, gb, z0t, z0b, z1t, z1b)``): inputs
-    are core blocks, halo stitching happens in-VMEM, outputs core-shaped."""
-    shard = halos is not None
-    Hl, W = x.shape
-    nTc = Hl // R
-    nT = nTc + 2 if shard else nTc
-    off_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    if shard:
-        in_spec = pl.BlockSpec(
-            (R, W), lambda i: (jnp.clip(jnp.minimum(i, nT - 1) - 1, 0, nTc - 1), 0)
-        )
-        halo_spec = pl.BlockSpec((R, W), lambda i: (0, 0))
-        out_spec = pl.BlockSpec((R, W), lambda i: (jnp.clip(i - 2, 0, nTc - 1), 0))
-    else:
-        in_spec = pl.BlockSpec((R, W), lambda i: (jnp.minimum(i, nT - 1), 0))
-        out_spec = pl.BlockSpec((R, W), lambda i: (jnp.maximum(i - 1, 0), 0))
-    stats_spec = pl.BlockSpec((8, 128), lambda i: (0, 0))
-    kern = functools.partial(
-        _tv_sweep_kernel, R=R, nT=nT, H=int(H_global), W=W,
-        tau=float(tau), sigma=float(sigma), rho=float(rho), lam=float(lam), nonneg=bool(nonneg),
-        core_lo=int(core_lo), core_hi=int(core_hi), shard=shard, iso=bool(iso),
-    )
-    cp = getattr(pltpu, "CompilerParams", None) or getattr(pltpu, "TPUCompilerParams")
-    try:
-        params = cp(dimension_semantics=("arbitrary",), vmem_limit_bytes=100 * 1024 * 1024)
-    except TypeError:  # pragma: no cover - older pallas without the knob
-        params = cp(dimension_semantics=("arbitrary",))
-    sds = functools.partial(jax.ShapeDtypeStruct, **({"vma": vma} if vma is not None else {}))
-    in_specs = [off_spec] + [in_spec] * 4
-    inputs = [off, x, g, z0, z1]
-    if shard:
-        in_specs += [halo_spec] * 8
-        inputs += list(halos)
-    return pl.pallas_call(
-        kern,
-        grid=(nT + 1,),
-        in_specs=in_specs,
-        out_specs=[out_spec] * 3 + [stats_spec],
-        out_shape=[sds((Hl, W), x.dtype)] * 3 + [sds((8, 128), jnp.float32)],
-        scratch_shapes=[
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((R + 8, W), jnp.float32),
-            pltpu.VMEM((R, W), jnp.float32),
-        ],
-        # write x/z0/z1 in place: output tile j = i-1 (i-2 shard) is written
-        # strictly after its input was consumed (scratch-carried), so the
-        # sweep may alias — this removes the XLA while-carry copies
-        # (measured 3 x ~205 us per step at 4096^2, ~18% of end-to-end)
-        input_output_aliases={1: 0, 3: 1, 4: 2},
-        compiler_params=params,
-        interpret=interpret,
-    )(*inputs)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tau", "sigma", "rho", "lam", "nonneg", "interpret", "iso")
-)
-def tv_pds_stencil_step_sweep(x, z, g, *, tau: float, sigma: float, rho: float, lam: float, nonneg: bool = True, interpret: bool = False, iso: bool = True):
-    """Software-pipelined sweep version of :func:`tv_pds_stencil_step`
-    (identical mathematics, ~2x faster: every array streams exactly once).
-
-    Requires ``H`` divisible by 8.  Callers should prefer this whenever
-    ``sweep_available()``; the Element-halo kernel and the XLA twin remain
-    as fallbacks."""
-    H, W = x.shape
-    R = _pick_sweep_rows(H, W)
-    if R == 0:
-        raise ValueError(f"no sweep tiling for H={H}, W={W}")
-    xn, z0n, z1n, _ = _sweep_call(
-        x, g, z[0], z[1], jnp.zeros((1,), jnp.int32),
-        R=R, H_global=H, core_lo=0, core_hi=H // R - 1,
-        tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, interpret=interpret,
-        iso=iso,
-    )
-    return xn, jnp.stack([z0n, z1n], axis=0)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tau", "sigma", "rho", "lam", "nonneg", "interpret", "iso")
-)
-def tv_pds_sweep_step_stats(x, z0, z1, g, *, tau: float, sigma: float, rho: float,
-                            lam: float, nonneg: bool = True, interpret: bool = False,
-                            iso: bool = True):
-    """Split-dual sweep step that RETURNS the kernel-epilogue metric partial
-    sums the kernel computes anyway (``_stats_update``) — the sweep-engine
-    analogue of the mega2/3/megar convention: ``metric_every=1`` costs no
-    extra HBM passes, and the split duals skip the (2, H, W) stack/slice
-    copies around the pallas_call."""
-    H, W = x.shape
-    R = _pick_sweep_rows(H, W)
-    if R == 0:
-        raise ValueError(f"no sweep tiling for H={H}, W={W}")
-    return _sweep_call(
-        x, g, z0, z1, jnp.zeros((1,), jnp.int32),
-        R=R, H_global=H, core_lo=0, core_hi=H // R - 1,
-        tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, interpret=interpret,
-        iso=iso,
-    )
-
-
-def _tv_sweepm_kernel(off_ref, x_ref, m_ref, a_ref, z0_ref, z1_ref,
-                      xo, z0o, z1o, so, s_x, s_m, s_a, s_z0, s_z1,
-                      *, R, nT, H, W, tau, sigma, rho, lam, nonneg, iso):
-    """Masked-Gram fused sweep: ONE pass computing the data-term gradient
-    ``g = 2 (m * x - atb)`` IN-kernel from the mask/atb streams and feeding
-    it straight into the PDS stencil chain.  ``m = A^H A``'s diagonal (a
-    sampling operator's Gram is diagonal: Masking/DownSampling/SubSampling
-    — inpainting and super-resolution data terms, reference
-    sampling.py:125-196) and ``atb = A^H y``, both iteration constants.
-    Same scratch-carry pipeline as ``_tv_sweep_kernel``; 8 HBM streams
-    per iteration (vs 7 for the conv mega engines — the mask replaces the
-    in-kernel band Gram)."""
-    i = pl.program_id(0)
-
-    cur_x = x_ref[...]
-    cur_m = m_ref[...]
-    cur_a = a_ref[...]
-    cur_z0 = z0_ref[...]
-    cur_z1 = z1_ref[...]
-
-    @pl.when(i > 0)
-    def _compute():
-        j = i - 1
-        row0 = j * R
-        xw = jnp.concatenate([s_x[...], cur_x[:8]], axis=0)
-        mw = jnp.concatenate([s_m[...], cur_m[:8]], axis=0)
-        aw = jnp.concatenate([s_a[...], cur_a[:8]], axis=0)
-        gw = 2.0 * (mw * xw - aw)
-        z0w = jnp.concatenate([s_z0[8:], cur_z0[:8]], axis=0)
-        z0up = jnp.concatenate([s_z0[7 : R + 8], cur_z0[:7]], axis=0)
-        z1w = jnp.concatenate([s_z1[...], cur_z1[:8]], axis=0)
-        x_n, z0_n, z1_n = _pds_stencil(
-            xw, gw, z0w, z0up, z1w, row0, R, H, W, tau, sigma, rho, lam, nonneg,
-            iso=iso,
-        )
-        xo[...] = x_n
-        z0o[...] = z0_n
-        z1o[...] = z1_n
-        _stats_update(so, [(x_n, xw[:R]), (z0_n, z0w[:R]), (z1_n, z1w[:R])])
-
-    @pl.when(i == 0)
-    def _init():
-        s_z0[:8] = jnp.zeros((8, W), cur_z0.dtype)
-        so[...] = jnp.zeros((8, 128), jnp.float32)
-
-    @pl.when(i > 0)
-    def _tail():
-        s_z0[:8] = s_z0[R : R + 8]
-
-    @pl.when(i < nT)
-    def _carry():
-        s_x[...] = cur_x
-        s_m[...] = cur_m
-        s_a[...] = cur_a
-        s_z0[8:] = cur_z0
-        s_z1[...] = cur_z1
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tau", "sigma", "rho", "lam", "nonneg", "interpret", "iso")
-)
-def tv_pds_sweepm_step_stats(x, z0, z1, m, atb, *, tau: float, sigma: float,
-                             rho: float, lam: float, nonneg: bool = True,
-                             interpret: bool = False, iso: bool = True):
-    """One FULL masked-TV PDS iteration (diagonal Gram + stencil + prox +
-    momentum + metric partial sums) in one kernel pass — the fused engine
-    behind inpainting / zero-fill super-resolution TV problems
-    (``min ||M x - y||^2 + lam TV(x)``).  Returns ``(x, z0, z1, stats)``
-    with the (8, 128) epilogue stats block (``_stats_update`` convention)."""
-    H, W = x.shape
-    R = _pick_sweep_rows(H, W)
-    if R == 0:
-        raise ValueError(f"no sweep tiling for H={H}, W={W}")
-    nT = H // R
-    off_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    in_spec = pl.BlockSpec((R, W), lambda i: (jnp.minimum(i, nT - 1), 0))
-    out_spec = pl.BlockSpec((R, W), lambda i: (jnp.maximum(i - 1, 0), 0))
-    stats_spec = pl.BlockSpec((8, 128), lambda i: (0, 0))
-    kern = functools.partial(
-        _tv_sweepm_kernel, R=R, nT=nT, H=H, W=W,
-        tau=float(tau), sigma=float(sigma), rho=float(rho), lam=float(lam),
-        nonneg=bool(nonneg), iso=bool(iso),
-    )
-    cp = getattr(pltpu, "CompilerParams", None) or getattr(pltpu, "TPUCompilerParams")
-    try:
-        params = cp(dimension_semantics=("arbitrary",), vmem_limit_bytes=100 * 1024 * 1024)
-    except TypeError:  # pragma: no cover - older pallas without the knob
-        params = cp(dimension_semantics=("arbitrary",))
-    return pl.pallas_call(
-        kern,
-        grid=(nT + 1,),
-        in_specs=[off_spec] + [in_spec] * 5,
-        out_specs=[out_spec] * 3 + [stats_spec],
-        out_shape=[jax.ShapeDtypeStruct((H, W), x.dtype)] * 3
-        + [jax.ShapeDtypeStruct((8, 128), jnp.float32)],
-        # in-place x/z0/z1 (see _sweep_call): output tile i-1 is written
-        # strictly after its input was scratch-carried
-        input_output_aliases={1: 0, 4: 1, 5: 2},
-        scratch_shapes=[
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((R + 8, W), jnp.float32),
-            pltpu.VMEM((R, W), jnp.float32),
-        ],
-        compiler_params=params,
-        interpret=interpret,
-    )(jnp.zeros((1,), jnp.int32), x, m, atb, z0, z1)
-
-
-def _tv_sweepm2_kernel(x_ref, m_ref, a_ref, z0_ref, z1_ref,
-                       xo, z0o, z1o, so,
-                       s_x, s_m, s_a, s_m2, s_a2, s_z0, s_z1,
-                       s_x1, s_z01, s_z11,
-                       *, R, nT, H, W, tau, sigma, rho, lam, nonneg, iso):
-    """TWO masked-TV PDS iterations per sweep (the mega3 trick without the
-    Gram machinery: the diagonal Gram's gradient ``2(m*x - atb)`` needs no
-    cross-tile compute, so the two-deep software pipeline only rings the
-    stage-1 iterates).  Every HBM stream is amortised over two iterations:
-    8 streams per DOUBLE step vs sweepm's 8 per single step."""
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _init0():
-        s_z0[:8] = jnp.zeros((8, W), jnp.float32)
-        so[...] = jnp.zeros((8, 128), jnp.float32)
-
-    @pl.when(i <= 1)
-    def _init1():
-        s_z01[:8] = jnp.zeros((8, W), jnp.float32)
-
-    cur_x = x_ref[...]
-    cur_m = m_ref[...]
-    cur_a = a_ref[...]
-    cur_z0 = z0_ref[...]
-    cur_z1 = z1_ref[...]
-
-    # ---- stage 1: iteration t+1 on tile j1 = i-1 (garbage at i==0 and the
-    # trailing steps; every consumer is overwritten or masked) -------------
-    j1 = i - 1
-    row1 = j1 * R
-    xw1 = jnp.concatenate([s_x[...], cur_x[:8]], axis=0)
-    mw1 = jnp.concatenate([s_m[...], cur_m[:8]], axis=0)
-    aw1 = jnp.concatenate([s_a[...], cur_a[:8]], axis=0)
-    gw1 = 2.0 * (mw1 * xw1 - aw1)
-    z0w1 = jnp.concatenate([s_z0[8:], cur_z0[:8]], axis=0)
-    z0up1 = jnp.concatenate([s_z0[7 : R + 8], cur_z0[:7]], axis=0)
-    z1w1 = jnp.concatenate([s_z1[...], cur_z1[:8]], axis=0)
-    x1, z01, z11 = _pds_stencil(
-        xw1, gw1, z0w1, z0up1, z1w1, row1, R, H, W, tau, sigma, rho, lam,
-        nonneg, iso=iso,
-    )
-
-    # ---- stage 2: iteration t+2 on tile j2 = i-2 -------------------------
-    @pl.when(i > 1)
-    def _stage2():
-        j2 = i - 2
-        row2 = j2 * R
-        xw2 = jnp.concatenate([s_x1[...], x1[:8]], axis=0)
-        mw2 = jnp.concatenate([s_m2[...], s_m[:8]], axis=0)
-        aw2 = jnp.concatenate([s_a2[...], s_a[:8]], axis=0)
-        gw2 = 2.0 * (mw2 * xw2 - aw2)
-        z0w2 = jnp.concatenate([s_z01[8:], z01[:8]], axis=0)
-        z0up2 = jnp.concatenate([s_z01[7 : R + 8], z01[:7]], axis=0)
-        z1w2 = jnp.concatenate([s_z11[...], z11[:8]], axis=0)
-        x2, z02, z12 = _pds_stencil(
-            xw2, gw2, z0w2, z0up2, z1w2, row2, R, H, W, tau, sigma, rho, lam,
-            nonneg, iso=iso,
-        )
-        xo[...] = x2
-        z0o[...] = z02
-        z1o[...] = z12
-        # stats measure the SECOND iteration only (single-iteration stopping
-        # semantics despite the double step — the mega3 convention)
-        _stats_update(so, [(x2, xw2[:R]), (z02, z0w2[:R]), (z12, z1w2[:R])])
-
-    # ---- ring updates (tails capture OLD contents, then carry) -----------
-    @pl.when(i > 0)
-    def _tail0():
-        s_z0[:8] = s_z0[R : R + 8]
-
-    @pl.when(i > 1)
-    def _tail1():
-        s_z01[:8] = s_z01[R : R + 8]
-
-    # the i-2 mask/atb rings shift every step (trailing steps read the
-    # clamped repeats, which is exactly tile j2 there)
-    s_m2[...] = s_m[...]
-    s_a2[...] = s_a[...]
-
-    @pl.when(i < nT)
-    def _carry():
-        s_x[...] = cur_x
-        s_m[...] = cur_m
-        s_a[...] = cur_a
-        s_z0[8:] = cur_z0
-        s_z1[...] = cur_z1
-
-    # stage-1 result rings (garbage written at i==0 / trailing steps is
-    # overwritten or guarded by the zeroed tails before any stage-2 use)
-    s_x1[...] = x1
-    s_z01[8:] = z01
-    s_z11[...] = z11
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tau", "sigma", "rho", "lam", "nonneg", "interpret", "iso")
-)
-def tv_pds_sweepm2_step(x, z0, z1, m, atb, *, tau: float, sigma: float,
-                        rho: float, lam: float, nonneg: bool = True,
-                        interpret: bool = False, iso: bool = True):
-    """TWO full masked-TV PDS iterations in one fused sweep (see
-    :func:`tv_pds_sweepm_step_stats` for the single-step variant and the
-    masked-Gram convention).  Returns ``(x, z0, z1, stats)`` — the state
-    after TWO iterations plus the (8, 128) stats block measuring the SECOND
-    iteration's improvement only.  Requires ``>= 2`` row tiles."""
-    H, W = x.shape
-    R = _pick_sweep_rows(H, W)
-    if R == 0 or H // R < 2:
-        raise ValueError(f"no sweepm2 tiling for H={H}, W={W} (needs >= 2 tiles)")
-    nT = H // R
-    in_spec = pl.BlockSpec((R, W), lambda i: (jnp.minimum(i, nT - 1), 0))
-    out_spec = pl.BlockSpec((R, W), lambda i: (jnp.maximum(i - 2, 0), 0))
-    stats_spec = pl.BlockSpec((8, 128), lambda i: (0, 0))
-    kern = functools.partial(
-        _tv_sweepm2_kernel, R=R, nT=nT, H=H, W=W,
-        tau=float(tau), sigma=float(sigma), rho=float(rho), lam=float(lam),
-        nonneg=bool(nonneg), iso=bool(iso),
-    )
-    cp = getattr(pltpu, "CompilerParams", None) or getattr(pltpu, "TPUCompilerParams")
-    try:
-        params = cp(dimension_semantics=("arbitrary",), vmem_limit_bytes=100 * 1024 * 1024)
-    except TypeError:  # pragma: no cover - older pallas without the knob
-        params = cp(dimension_semantics=("arbitrary",))
-    tile = lambda rows: pltpu.VMEM((rows, W), jnp.float32)
-    return pl.pallas_call(
-        kern,
-        grid=(nT + 2,),
-        in_specs=[in_spec] * 5,
-        out_specs=[out_spec] * 3 + [stats_spec],
-        out_shape=[jax.ShapeDtypeStruct((H, W), x.dtype)] * 3
-        + [jax.ShapeDtypeStruct((8, 128), jnp.float32)],
-        # in-place x/z0/z1 (the mega3 aliasing argument: output tile i-2 is
-        # written strictly after its inputs were consumed into the rings)
-        input_output_aliases={0: 0, 3: 1, 4: 2},
-        scratch_shapes=[
-            tile(R), tile(R), tile(R), tile(R), tile(R),  # s_x s_m s_a s_m2 s_a2
-            tile(R + 8), tile(R),                          # s_z0 s_z1
-            tile(R), tile(R + 8), tile(R),                 # s_x1 s_z01 s_z11
-        ],
-        compiler_params=params,
-        interpret=interpret,
-    )(x, m, atb, z0, z1)
-
-
-def tv_pds_sweep_shard_step(x, g, z0, z1, halos, off, *, H_global: int,
-                            R: int, tau: float, sigma: float, rho: float, lam: float,
-                            nonneg: bool = True, interpret: bool = False, vma=None,
-                            iso: bool = True):
-    """Shard-local fused stencil sweep for a row-sharded image (called
-    INSIDE ``shard_map``).  Inputs are the device's CORE (h_loc, W) blocks
-    — including ``g``, the data-term gradient computed by the caller's
-    sharded Gram (works for ANY Gram mode, unlike the fully-fused
-    :func:`tv_pds_mega2_shard_step`) — plus ``halos = (xt, xb, gt, gb,
-    z0t, z0b, z1t, z1b)``, the (R, W) neighbour-row blocks from
-    ``ppermute``, stitched in-VMEM by the kernel.  ``off`` = (1,) i32
-    global row of ext row 0 (= device_row0 - R).  Returns core-shaped
-    (x, z0, z1) plus the core-only (8, 128) stats block."""
-    h_loc, W = x.shape
-    nT = h_loc // R + 2
-    if h_loc % R or nT < 3:
-        raise ValueError(f"shard block of {h_loc} rows needs >= 1 tile of {R}")
-    return _sweep_call(
-        x, g, z0, z1, off,
-        R=R, H_global=H_global, core_lo=1, core_hi=nT - 2,
-        tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, interpret=interpret,
-        vma=vma, halos=halos, iso=iso,
-    )
-
-
-def sweep_available(H: int, W: int) -> bool:
-    """True iff the sweep kernel has a feasible tiling for this shape."""
-    return _pick_sweep_rows(H, W) != 0
-
-
-# ---------------------------------------------------------------------------
-# Mega kernel: row-direction convolution Gram FUSED into the sweep stencil
-#
-# For a rank-1 PSF the data-term gradient is 2*(RowGram(ColGram(x)) - atb)
-# (ops/conv.py SeparableConvGram2D, both factors exact banded Toeplitz
-# passes).  The sweep stencil kernel already keeps a trailing window of every
-# array in VMEM scratch — so the ROW-direction Gram (reach K-1 <= 15 rows)
-# can be computed *inside* the kernel as one small MXU matmul over a 48-row
-# window of ``w = ColGram(x)``, instead of writing the full gradient to HBM
-# and reading it back.  Per iteration this saves two full-array HBM streams
-# (write g, read g) plus the row-Gram pass's own read/write pair; only the
-# lane-direction ColGram remains an XLA pass (in-kernel lane rolls are
-# VPU-bound, docs/BENCH.md).
-#
-# The (2K-1)-tap autocorrelation band becomes a (R+8, R+2*HG) matrix B
-# (x2 gradient scale folded in); 'same'-crop deviations from Toeplitz are
-# the thin E_top/E_bot corrections (kernels/band.py make_gram_band),
-# computed OUTSIDE on w[:L]/w[-L:] slices and added on the first/last tiles
-# via a small (2*HG, W) side input.  Requires K-1 <= MEGA_HG - 1 = 15 so
-# the bottom correction never reaches the one-row halo of the
-# second-to-last tile.
-# ---------------------------------------------------------------------------
-
-MEGA_R = 16  # rows per tile (VMEM working set ~13MB at W=4096)
-MEGA_HG = 16  # row-Gram halo (8-row aligned); supports taps K <= 16
-
-
-def make_mega_band(acorr, r: int = None) -> "np.ndarray":
-    """(R+8, R+2*HG) matrix applying 2x the (2K-1)-tap autocorrelation band
-    to the w-window rows [row0-HG, row0+R+HG); row jr of the output is
-    global row row0+jr (rows R+1..R+7 are alignment padding, clipped)."""
-    import numpy as np
-
-    acorr = np.asarray(acorr, np.float64).reshape(-1)
-    K1 = (acorr.size - 1) // 2
-    if K1 > MEGA_HG - 1:
-        raise ValueError(f"autocorrelation reach {K1} exceeds {MEGA_HG - 1}")
-    R, HG = (MEGA_R if r is None else int(r)), MEGA_HG
-    B = np.zeros((R + 8, R + 2 * HG), np.float32)
-    for jr in range(R + 8):
-        for q in range(R + 2 * HG):
-            d = jr + HG - q
-            if -K1 <= d <= K1:
-                B[jr, q] = 2.0 * acorr[K1 + d]
-    return B
-
-
-def _tv_mega_kernel(w_ref, x_ref, a_ref, z0_ref, z1_ref, corr_ref, b_ref,
-                    xo, z0o, z1o, s_x, s_a, s_z0, s_z1, s_w, s_wt,
-                    *, R, nT, H, W, tau, sigma, rho, lam, nonneg, iso=True):
-    i = pl.program_id(0)
-    HG = MEGA_HG
-
-    cur_w = w_ref[...]
-    cur_x = x_ref[...]
-    cur_a = a_ref[...]
-    cur_z0 = z0_ref[...]
-    cur_z1 = z1_ref[...]
-
-    @pl.when(i > 0)
-    def _compute():
-        j = i - 1
-        row0 = j * R
-        dt = cur_x.dtype
-        Rw = R + 8
-
-        # ---- fused row-direction Gram over window rows [row0-HG, row0+R+HG)
-        last_f = jnp.where(i == nT, 0.0, 1.0).astype(dt)  # rows >= H are zero
-        win = jnp.concatenate([s_wt[...], s_w[...], (cur_w * last_f)[:HG]], axis=0)
-        gsum = jnp.dot(
-            b_ref[...], win,
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        ).astype(dt)
-        first_f = jnp.where(j == 0, 1.0, 0.0).astype(dt)
-        lastj_f = jnp.where(j == nT - 1, 1.0, 0.0).astype(dt)
-        zpad = jnp.zeros((R + 8 - HG, W), dt)
-        gsum = gsum + first_f * jnp.concatenate([corr_ref[:HG], zpad], axis=0)
-        gsum = gsum + lastj_f * jnp.concatenate([corr_ref[HG:], zpad], axis=0)
-        aw = jnp.concatenate([s_a[...], cur_a[:8]], axis=0)
-        gw = gsum - 2.0 * aw  # = 2*(RowGram(ColGram(x)) - atb) on the window
-
-        # ---- stencil chain (identical to _tv_sweep_kernel) ---------------
-        xw = jnp.concatenate([s_x[...], cur_x[:8]], axis=0)
-        z0w = jnp.concatenate([s_z0[8:], cur_z0[:8]], axis=0)
-        z0up = jnp.concatenate([s_z0[7 : R + 8], cur_z0[:7]], axis=0)
-        z1w = jnp.concatenate([s_z1[...], cur_z1[:8]], axis=0)
-
-        def lastcol_mask(nrows):
-            colw = jax.lax.broadcasted_iota(jnp.int32, (nrows, W), 1)
-            return jnp.where(colw == W - 1, 0.0, 1.0).astype(dt)
-
-        def firstcol_mask(nrows):
-            colw = jax.lax.broadcasted_iota(jnp.int32, (nrows, W), 1)
-            return jnp.where(colw == 0, 0.0, 1.0).astype(dt)
-
-        z0w = z0w * _row_mask_last_zero(H, row0, Rw, W, dt)
-        z0up = z0up * _row_mask_last_zero(H, row0 - 1, Rw, W, dt)
-        z1w = z1w * lastcol_mask(Rw)
-
-        z1_left = _roll_lanes(z1w, 1) * firstcol_mask(Rw)
-        div = (z0up - z0w) + (z1_left - z1w)
-
-        x_t = xw - tau * gw - tau * div
-        if nonneg:
-            x_t = jnp.maximum(x_t, 0.0)
-
-        u = 2.0 * x_t - xw
-        du_r = (u[1 : 1 + R] - u[:R]) * _row_mask_last_zero(H, row0, R, W, dt)
-        uc = u[:R]
-        lc_R = lastcol_mask(R)
-        u_right = _roll_lanes(uc, -1) * lc_R
-        du_c = (u_right - uc) * lc_R
-
-        v0 = z0w[:R] + sigma * du_r
-        v1 = z1w[:R] + sigma * du_c
-        z0_t, z1_t = _dual_prox(v0, v1, lam, iso)
-
-        xo[...] = rho * x_t[:R] + (1.0 - rho) * xw[:R]
-        z0o[...] = rho * z0_t + (1.0 - rho) * z0w[:R]
-        z1o[...] = rho * z1_t + (1.0 - rho) * z1w[:R]
-
-    @pl.when(i == 0)
-    def _init():
-        s_z0[:8] = jnp.zeros((8, W), cur_z0.dtype)
-        s_wt[...] = jnp.zeros((MEGA_HG, W), cur_w.dtype)
-
-    @pl.when(i > 0)
-    def _tail():
-        s_z0[:8] = s_z0[R : R + 8]
-        s_wt[...] = s_w[R - MEGA_HG :]
-
-    @pl.when(i < nT)
-    def _carry():
-        s_x[...] = cur_x
-        s_a[...] = cur_a
-        s_z0[8:] = cur_z0
-        s_z1[...] = cur_z1
-        s_w[...] = cur_w
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tau", "sigma", "rho", "lam", "nonneg", "interpret", "iso")
-)
-def tv_pds_mega_step(x, z, w, atb, corr, B, *, tau: float, sigma: float, rho: float, lam: float, nonneg: bool = True, interpret: bool = False, iso: bool = True):
-    """One full TV PDS iteration with the row-direction Gram fused into the
-    sweep stencil kernel.
-
-    ``w = ColGram(x)`` (lane-direction banded pass, computed by the caller),
-    ``corr`` is the (2*MEGA_HG, W) top/bottom row-Gram edge correction
-    (already x2-scaled), ``B`` from :func:`make_mega_band`.  Equivalent to
-    ``tv_pds_stencil_step_xla(x, z, 2*(RowGram(w) - atb), ...)``.
-    """
-    H, W = x.shape
-    R = MEGA_R
-    # _tv_mega_kernel's inline bottom edge-correction placement (gsum rows
-    # [0, HG)) is only exact because R == MEGA_HG; raising MEGA_R (as mega2
-    # did for its own kernel) requires porting it onto the general-R
-    # _mega_row_gram first
-    assert R == MEGA_HG, "mega kernel assumes R == MEGA_HG (see bottom corr)"
-    if H % R:
-        raise ValueError(f"H={H} must be divisible by {R}")
-    nT = H // R
-    in_spec = pl.BlockSpec((R, W), lambda i: (jnp.minimum(i, nT - 1), 0))
-    corr_spec = pl.BlockSpec((2 * MEGA_HG, W), lambda i: (0, 0))
-    b_spec = pl.BlockSpec(tuple(B.shape), lambda i: (0, 0))
-    out_spec = pl.BlockSpec((R, W), lambda i: (jnp.maximum(i - 1, 0), 0))
-    kern = functools.partial(
-        _tv_mega_kernel, R=R, nT=nT, H=H, W=W,
-        tau=float(tau), sigma=float(sigma), rho=float(rho), lam=float(lam), nonneg=bool(nonneg), iso=bool(iso),
-    )
-    cp = getattr(pltpu, "CompilerParams", None) or getattr(pltpu, "TPUCompilerParams")
-    xn, z0n, z1n = pl.pallas_call(
-        kern,
-        grid=(nT + 1,),
-        in_specs=[in_spec, in_spec, in_spec, in_spec, in_spec, corr_spec, b_spec],
-        out_specs=[out_spec] * 3,
-        out_shape=[jax.ShapeDtypeStruct((H, W), x.dtype)] * 3,
-        scratch_shapes=[
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((R + 8, W), jnp.float32),
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((MEGA_HG, W), jnp.float32),
-        ],
-        compiler_params=cp(dimension_semantics=("arbitrary",)),
-        interpret=interpret,
-    )(w, x, atb, z[0], z[1], corr, B)
-    return xn, jnp.stack([z0n, z1n], axis=0)
-
-
-# ---------------------------------------------------------------------------
-# Mega2 kernel: BOTH Gram directions fused into the sweep stencil
-#
-# Mega (above) still pays a separate XLA pass for the lane-direction
-# ``w = ColGram(x)`` — one full read of x and write of w per iteration, plus
-# w is re-read by the kernel.  Mega2 computes the lane Gram INSIDE the
-# kernel from the x tile it already streams: the lane axis viewed as
-# (W/128, 128) chunks makes the (2K-1)-tap band a block-tridiagonal
-# chunk matmul — three (R*W/128, 128) @ (128, 128) MXU contractions on the
-# flat lane-split view (a VPU roll-pair accumulation measured 3x slower:
-# 28 rolls ~ 1.2 ms/iter at 4096^2), plus ONE (R, 256) @ (256, 256)
-# corner-fix matmul for the 'same'-crop edge corrections
-# (:func:`make_mega2_lane_plan`).  The w HBM array disappears entirely:
-# 10 streams/iteration -> 7.
-# ---------------------------------------------------------------------------
-
-
-def make_mega2_lane_plan(col_taps, W: int):
-    """(C, F) matrices for the in-kernel MXU lane Gram.
-
-    ``C`` is the (256, 128) MERGED stack [Cc; C_0] of the band's
-    block-tridiagonal 128-chunk form — viewing the lane axis as
-    (W/128, 128) chunks, the zero-boundary banded Toeplitz pass is
-    ``out_chunk[c] = sum_d x_chunk[c+d] @ C_d`` with the two off-diagonal
-    dots collapsed into one against ``Cc = C_-1 + C_+1`` (their nonzero
-    rows are disjoint for reach <= 64; the operand is lane-selected at 64
-    — two (R*W/128, 128) @ (128, 128) MXU matmuls per tile instead of
-    three; VPU roll pairs measured 3x slower, docs/BENCH.md).  ``F`` is the (256, 256)
-    corner-fix: ``exact(x) = band(x) + scatter([x[:, :128] | x[:, -128:]]
-    @ F)`` — the 'same'-crop deviations from Toeplitz, confined to the
-    first/last K-1 lanes, landing on lanes [0, 128) and [W-128, W).
-    Requires ``W >= 384`` (corner regions independent) and ``W % 128 == 0``
-    (aligned slices).  ``col_taps`` are the RAW filter taps (the crop
-    corrections are not determined by the autocorrelation alone)."""
-    import numpy as np
-
-    v = np.asarray(col_taps, np.float64).reshape(-1)  # RAW filter taps
-    K = v.size
-    taps = np.convolve(v, v[::-1])  # (2K-1) autocorrelation, symmetric
-    K1 = K - 1
-    if W < 384 or W % 128:
-        raise ValueError(f"mega2 lane plan needs W % 128 == 0 and W >= 384, got {W}")
-    if 2 * K1 > 128:
-        raise ValueError(f"lane Gram reach {K1} too wide for 128-lane corner fix")
-    tile = 128
-    i = np.arange(tile)[:, None]
-    ll = np.arange(tile)[None, :]
-    C3 = np.zeros((3 * tile, tile), np.float32)
-    for d in (-1, 0, 1):
-        m = tile * d + i - ll  # out[p] = sum_m a_m x[p+m]
-        valid = np.abs(m) <= K1
-        C3[(d + 1) * tile : (d + 2) * tile] = np.where(
-            valid, taps[np.clip(K1 + m, 0, 2 * K1)], 0.0
-        )
-    # ship the MERGED [Cc; C_0] stack (reach <= 64 is guaranteed by the
-    # 2*K1 <= 128 gate above): C_-1/C_+1 have disjoint nonzero rows, so the
-    # kernel runs TWO dots per tile instead of three — merged host-side
-    # once, like make_sepconv_plan, not per grid step in the kernel
-    C = np.concatenate([C3[:tile] + C3[2 * tile :], C3[tile : 2 * tile]], axis=0)
-    # exact 'same'-conv Gram vs the clipped banded Toeplitz on a witness
-    # width: the difference is edge-local, hence identical for every W >= 384
-    Wt = 384
-    o = K // 2
-    T = np.zeros((Wt, Wt))
-    for j in range(Wt):
-        for k in range(K):
-            p = j - k + o
-            if 0 <= p < Wt:
-                T[j, p] += v[k]
-    G = T.T @ T
-    Tb = np.zeros((Wt, Wt))
-    for m in range(-K1, K1 + 1):
-        idx = np.arange(max(0, -m), min(Wt, Wt - m))
-        Tb[idx, idx + m] = taps[K1 + m]
-    D = G - Tb
-    # support check: the fix must live in the corner blocks only
-    assert np.allclose(D[128:-128], 0.0) and np.allclose(D[:, 128:-128], 0.0)
-    F = np.zeros((256, 256), np.float32)
-    F[:128, :128] = D[:128, :128].T
-    F[128:, :128] = D[:128, Wt - 128 :].T
-    F[:128, 128:] = D[Wt - 128 :, :128].T
-    F[128:, 128:] = D[Wt - 128 :, Wt - 128 :].T
-    return C, F
-
-
-# MXU precision mode of the in-kernel lane-Gram band matmuls.  Mosaic only
-# lowers DEFAULT (1-pass bf16) and HIGHEST (6-pass f32) dots, so the middle
-# ground is hand-rolled: "bf16x3" splits each operand into a bf16 hi/lo pair
-# and takes the three significant cross products at DEFAULT — ~f32 accuracy
-# (drops only the lo x lo term, ~2^-32 relative) at HALF the MXU passes of
-# HIGHEST.  Measured at 4096^2 (docs/BENCH.md): HIGHEST 724 iters/s, DEFAULT
-# 963 (but 3e-3 rel error after 400 iters — too coarse), bf16x3 keeps
-# per-step exactness within the suite's 3e-5 tolerance.
-LANE_GRAM_PRECISION = "bf16x3"
-
-
-def _split_bf16(a):
-    """hi/lo bf16 decomposition: ``a = hi + lo`` with both parts bf16-exact
-    (so DEFAULT-precision MXU passes introduce no further operand error)."""
-    hi = a.astype(jnp.bfloat16).astype(jnp.float32)
-    lo = (a - hi).astype(jnp.bfloat16).astype(jnp.float32)
-    return hi, lo
-
-
-def _dot_bf16x3(a_pair, b_pair):
-    """3-pass bf16x3 matmul with f32 accumulation: ``a @ b`` up to the
-    dropped lo x lo term."""
-    DEF = jax.lax.Precision.DEFAULT
-    ah, al = a_pair
-    bh, bl = b_pair
-    return (
-        jnp.dot(ah, bh, precision=DEF, preferred_element_type=jnp.float32)
-        + jnp.dot(ah, bl, precision=DEF, preferred_element_type=jnp.float32)
-        + jnp.dot(al, bh, precision=DEF, preferred_element_type=jnp.float32)
-    )
-
-
-def _lane_gram_tile(x_tile, c_mat, f_mat, W: int):
-    """Exact lane-direction conv Gram of one (R, W) tile, entirely in VMEM:
-    block-tridiagonal 128-chunk MXU matmuls on the lane-split view + the
-    corner-fix matmul (plan from :func:`make_mega2_lane_plan`)."""
-    dt = x_tile.dtype
-    R = x_tile.shape[0]
-    tile = 128
-    nC = W // tile
-    xv = jnp.reshape(x_tile, (R * nC, tile))
-    fidx = jax.lax.broadcasted_iota(jnp.int32, (R * nC, tile), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (R * nC, tile), 1)
-    # the two off-diagonal blocks' nonzero ROWS are disjoint (C_+1 uses input
-    # lanes < reach, C_-1 lanes >= 128 - reach; the plan gates 2*reach <= 128)
-    # so both neighbour-chunk dots collapse into ONE dot against
-    # Cc = C_-1 + C_+1 with the operand lane-selected at 64: EXACT, and 1/3
-    # of the lane-gram MXU passes disappear (measured 0.846 -> ~0.78 ms/iter
-    # at 4096^2; removing the off-diag dots entirely bounds this at 0.699)
-    m_lo = jnp.where(
-        jnp.logical_and(fidx % nC != nC - 1, lane < 64), 1.0, 0.0
-    ).astype(dt)  # xp (next chunk) feeds Cc's C_+1 rows
-    m_hi = jnp.where(
-        jnp.logical_and(fidx % nC != 0, lane >= 64), 1.0, 0.0
-    ).astype(dt)  # xm (previous chunk) feeds Cc's C_-1 rows
-    HIP = jax.lax.Precision.HIGHEST
-    if c_mat.shape[0] == 2 * tile:
-        # merged [Cc; C_0] plan (make_mega2_lane_plan)
-        cc, c0 = c_mat[:tile], c_mat[tile:]
-    else:  # legacy 3-block [C_-1; C_0; C_+1] stack
-        cc, c0 = c_mat[:tile] + c_mat[2 * tile :], c_mat[tile : 2 * tile]
-    if LANE_GRAM_PRECISION == "bf16x3":
-        xh, xl = _split_bf16(xv)
-        # chunk c+-1 = flat row shift, masked at chunk-group (row) edges;
-        # 0/1 masks, selects and rolls are exact on the bf16 halves
-        xc = (
-            pltpu.roll(xh, R * nC - 1, axis=0) * m_lo + pltpu.roll(xh, 1, axis=0) * m_hi,
-            pltpu.roll(xl, R * nC - 1, axis=0) * m_lo + pltpu.roll(xl, 1, axis=0) * m_hi,
-        )
-        out = (
-            _dot_bf16x3(xc, _split_bf16(cc)) + _dot_bf16x3((xh, xl), _split_bf16(c0))
-        ).astype(dt)
-    else:
-        xc = pltpu.roll(xv, R * nC - 1, axis=0) * m_lo + pltpu.roll(xv, 1, axis=0) * m_hi
-        out = (
-            jnp.dot(xc, cc, precision=HIP, preferred_element_type=jnp.float32)
-            + jnp.dot(xv, c0, precision=HIP, preferred_element_type=jnp.float32)
-        ).astype(dt)
-    acc = jnp.reshape(out, (R, W))
-    # F is BLOCK-DIAGONAL (the W >= 384 support assert in
-    # make_mega2_lane_plan: edge corrections are local, so the cross blocks
-    # vanish) — two (R, 128) @ (128, 128) dots, half the fix FLOPs of the
-    # stacked (R, 256) @ (256, 256) form and no operand concat
-    fix1 = jnp.dot(
-        x_tile[:, :128], f_mat[:128, :128], precision=HIP, preferred_element_type=jnp.float32
-    ).astype(dt)
-    fix2 = jnp.dot(
-        x_tile[:, W - 128 :], f_mat[128:, 128:], precision=HIP, preferred_element_type=jnp.float32
-    ).astype(dt)
-    zmid = jnp.zeros((R, W - 256), dt)
-    return acc + jnp.concatenate([fix1, zmid, fix2], axis=1)
-
-
-
-STATS_LANES = 6  # [||dx||^2, ||x_old||^2, ||dz0||^2, ||z0_old||^2, ||dz1||^2, ||z1_old||^2]
-
-
-def _stats_update(so_ref, pairs):
-    """Accumulate per-tile metric partial sums into the (8, 128) stats
-    output block (VERDICT r2 task 3: the stopping/diagnostic reductions are
-    full HBM passes over arrays the kernel already holds in VMEM — emitting
-    them as kernel-epilogue partial sums makes ``metric_every=1`` ~free).
-
-    ``pairs`` is ``[(new_tile, old_tile), ...]`` for (x, z0, z1); lane ``2k``
-    gets ``sum((new-old)^2)``, lane ``2k+1`` gets ``sum(old^2)``."""
-    vals = []
-    for new_t, old_t in pairs:
-        d = new_t - old_t
-        vals.append(jnp.sum(d * d))
-        vals.append(jnp.sum(old_t * old_t))
-    row = jax.lax.broadcasted_iota(jnp.int32, (8, 128), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (8, 128), 1)
-    upd = jnp.zeros((8, 128), jnp.float32)
-    for k, v in enumerate(vals):
-        upd = upd + jnp.where(
-            jnp.logical_and(row == 0, lane == k), v.astype(jnp.float32), 0.0
-        )
-    so_ref[...] += upd
-
-
-def _lastcol_mask(nrows, W, dt):
-    colw = jax.lax.broadcasted_iota(jnp.int32, (nrows, W), 1)
-    return jnp.where(colw == W - 1, 0.0, 1.0).astype(dt)
-
-
-def _firstcol_mask(nrows, W, dt):
-    colw = jax.lax.broadcasted_iota(jnp.int32, (nrows, W), 1)
-    return jnp.where(colw == 0, 0.0, 1.0).astype(dt)
-
-
-def _mega_row_gram(w_tail, w_body, w_head, b_mat, corr, first_f, lastj_f, R, W, dt):
-    """(R+8, W) row-band pass over window rows [row0-HG, row0+R+HG) plus the
-    masked first/last-tile edge corrections.
-
-    ``w_tail`` (HG, W) = w rows [row0-HG, row0); ``w_body`` (R, W) = tile j;
-    ``w_head`` (HG, W) = rows [row0+R, ...), already zero-masked past H.
-    ``first_f``/``lastj_f`` are 0/1 scalars marking the GLOBAL first/last
-    tile (shard-aware callers derive them from the global row offset).
-    The matmul runs in two halves so no intermediate exceeds max(R, 2*HG)
-    rows (a single (R+2*HG, W) concat trips the Mosaic tiler at R=32)."""
-    HG = MEGA_HG
-    half1 = w_tail if R == HG else jnp.concatenate([w_tail, w_body[: R - HG]], axis=0)
-    half2 = jnp.concatenate([w_body[R - HG :], w_head], axis=0)  # (2*HG, W)
-    if LANE_GRAM_PRECISION == "bf16x3":
-        gsum = (
-            _dot_bf16x3(_split_bf16(b_mat[:, :R]), _split_bf16(half1))
-            + _dot_bf16x3(_split_bf16(b_mat[:, R:]), _split_bf16(half2))
-        ).astype(dt)
-    else:
-        HIP = jax.lax.Precision.HIGHEST
-        gsum = (
-            jnp.dot(b_mat[:, :R], half1, precision=HIP, preferred_element_type=jnp.float32)
-            + jnp.dot(b_mat[:, R:], half2, precision=HIP, preferred_element_type=jnp.float32)
-        ).astype(dt)
-    # top correction: global rows [0, HG); bottom: global rows [H-HG, H) =
-    # the LAST HG rows of the last tile = gsum rows [R-HG, R)
-    gsum = gsum + first_f * jnp.concatenate(
-        [corr[:HG], jnp.zeros((R + 8 - HG, W), dt)], axis=0
-    )
-    bot = (
-        jnp.concatenate([corr[HG:], jnp.zeros((8, W), dt)], axis=0)
-        if R == HG
-        else jnp.concatenate(
-            [jnp.zeros((R - HG, W), dt), corr[HG:], jnp.zeros((8, W), dt)], axis=0
-        )
-    )
-    return gsum + lastj_f * bot
-
-
-def _pds_stencil(xw, gw, z0w, z0up, z1w, row0, R, H, W, tau, sigma, rho, lam,
-                 nonneg, col0=None, W_global=None, iso=True):
-    """Masked TV PDS stencil chain on an (R+8)-row window; returns the R-row
-    (x_new, z0_new, z1_new) tiles.  Identical math to _tv_sweep_kernel.
-
-    ``col0``/``W_global`` (2-D spatial mesh, kernels/tvr.py shard2d): the
-    window's lanes are a lane-halo-extended slice of a GLOBALLY W_global-wide
-    image starting at global column ``col0`` — the first/last-column masks
-    key off global columns, and the lane-roll neighbour reads are correct on
-    every core lane (the rolls only wrap at the ext edges, which the caller
-    crops).  Default (None): lanes are the full image width W."""
-    dt = xw.dtype
-    Rw = R + 8
-
-    if col0 is None:
-        lc_Rw = _lastcol_mask(Rw, W, dt)
-        fc_Rw = _firstcol_mask(Rw, W, dt)
-        lc_R = _lastcol_mask(R, W, dt)
-    else:
-        def _gc_mask(nrows, target):
-            colw = jax.lax.broadcasted_iota(jnp.int32, (nrows, W), 1) + col0
-            return jnp.where(colw == target, 0.0, 1.0).astype(dt)
-
-        lc_Rw = _gc_mask(Rw, W_global - 1)
-        fc_Rw = _gc_mask(Rw, 0)
-        lc_R = _gc_mask(R, W_global - 1)
-
-    z0w = z0w * _row_mask_last_zero(H, row0, Rw, W, dt)
-    z0up = z0up * _row_mask_last_zero(H, row0 - 1, Rw, W, dt)
-    z1w = z1w * lc_Rw
-
-    z1_left = _roll_lanes(z1w, 1) * fc_Rw
-    div = (z0up - z0w) + (z1_left - z1w)
-
-    x_t = xw - tau * gw - tau * div
-    if nonneg:
-        x_t = jnp.maximum(x_t, 0.0)
-
-    u = 2.0 * x_t - xw
-    du_r = (u[1 : 1 + R] - u[:R]) * _row_mask_last_zero(H, row0, R, W, dt)
-    uc = u[:R]
-    u_right = _roll_lanes(uc, -1) * lc_R
-    du_c = (u_right - uc) * lc_R
-
-    v0 = z0w[:R] + sigma * du_r
-    v1 = z1w[:R] + sigma * du_c
-    z0_t, z1_t = _dual_prox(v0, v1, lam, iso)
-
-    x_new = rho * x_t[:R] + (1.0 - rho) * xw[:R]
-    z0_new = rho * z0_t + (1.0 - rho) * z0w[:R]
-    z1_new = rho * z1_t + (1.0 - rho) * z1w[:R]
-    return x_new, z0_new, z1_new
-
-
-def _tv_mega2_kernel(off_ref, *refs, R, nT, H, W, tau, sigma, rho, lam, nonneg,
-                     core_lo, core_hi, shard, iso=True):
-    """Single-chip AND shard-aware mega2 step.  ``off_ref`` (SMEM, (1,) i32)
-    holds the GLOBAL row index of local row 0 (0 single-chip; shard callers
-    pass ``device_row0 - R``).  ``H`` is the GLOBAL height — every boundary
-    mask and edge-correction flag is computed from global rows, so halo
-    tiles of a shard see interior (no-op) masks.  ``core_lo``/``core_hi``:
-    inclusive output-tile range that is written / stats-accumulated.
-
-    With ``shard=True`` the neighbour halos arrive as SIX separate (R, W)
-    inputs (selected in-VMEM at the first/last ext tile) and the outputs are
-    CORE-shaped — the caller never materialises halo-extended iterate
-    arrays, saving ~9 full-array HBM streams per iteration vs concatenating
-    outside the kernel.  ``nT`` counts EXT tiles (body tiles + 2)."""
-    i = pl.program_id(0)
-    HG = MEGA_HG
-    off = off_ref[0]
-    if shard:
-        (x_ref, a_ref, z0_ref, z1_ref, xt_r, xb_r, z0t_r, z0b_r, z1t_r, z1b_r,
-         corr_ref, b_ref, c_ref, f_ref,
-         xo, z0o, z1o, so, s_x, s_a, s_z0, s_z1, s_w, s_wt) = refs
-    else:
-        (x_ref, a_ref, z0_ref, z1_ref, corr_ref, b_ref, c_ref, f_ref,
-         xo, z0o, z1o, so, s_x, s_a, s_z0, s_z1, s_w, s_wt) = refs
-
-    cur_x = x_ref[...]
-    cur_a = a_ref[...]
-    cur_z0 = z0_ref[...]
-    cur_z1 = z1_ref[...]
-    if shard:
-        t = jnp.minimum(i, nT - 1)  # ext tile being read
-        first_t = t == 0
-        last_t = t == nT - 1
-
-        def _sel(body, top_r, bot_r):
-            return jnp.where(first_t, top_r[...], jnp.where(last_t, bot_r[...], body))
-
-        cur_x = _sel(cur_x, xt_r, xb_r)
-        cur_z0 = _sel(cur_z0, z0t_r, z0b_r)
-        cur_z1 = _sel(cur_z1, z1t_r, z1b_r)
-
-    # in-kernel lane Gram of the tile the sweep is already streaming
-    cur_w = _lane_gram_tile(cur_x, c_ref[...], f_ref[...], W)
-
-    @pl.when(i > 0)
-    def _compute():
-        j = i - 1
-        row0 = j * R + off  # GLOBAL row of the output tile's first row
-        dt = cur_x.dtype
-
-        last_f = jnp.where(i == nT, 0.0, 1.0).astype(dt)  # rows past the block
-        first_f = jnp.where(row0 == 0, 1.0, 0.0).astype(dt)
-        lastj_f = jnp.where(row0 == H - R, 1.0, 0.0).astype(dt)
-        gsum = _mega_row_gram(
-            s_wt[...], s_w[...], (cur_w * last_f)[:HG], b_ref[...], corr_ref[...],
-            first_f, lastj_f, R, W, dt,
-        )
-        aw = jnp.concatenate([s_a[...], cur_a[:8]], axis=0)
-        gw = gsum - 2.0 * aw  # = 2*(RowGram(ColGram(x)) - atb) on the window
-
-        xw = jnp.concatenate([s_x[...], cur_x[:8]], axis=0)
-        z0w = jnp.concatenate([s_z0[8:], cur_z0[:8]], axis=0)
-        z0up = jnp.concatenate([s_z0[7 : R + 8], cur_z0[:7]], axis=0)
-        z1w = jnp.concatenate([s_z1[...], cur_z1[:8]], axis=0)
-        x_n, z0_n, z1_n = _pds_stencil(
-            xw, gw, z0w, z0up, z1w, row0, R, H, W, tau, sigma, rho, lam, nonneg,
-            iso=iso,
-        )
-        in_core = jnp.logical_and(j >= core_lo, j <= core_hi)
-
-        @pl.when(in_core if shard else i > 0)
-        def _write():
-            # shard mode: halo output tiles are SKIPPED — their out-block
-            # index clamps onto a core block that is written at an adjacent
-            # step, and an unwritten revisit preserves the real content
-            xo[...] = x_n
-            z0o[...] = z0_n
-            z1o[...] = z1_n
-
-        @pl.when(in_core)
-        def _stats():
-            _stats_update(
-                so, [(x_n, xw[:R]), (z0_n, z0w[:R]), (z1_n, z1w[:R])]
-            )
-
-    @pl.when(i == 0)
-    def _init():
-        s_z0[:8] = jnp.zeros((8, W), cur_z0.dtype)
-        s_wt[...] = jnp.zeros((MEGA_HG, W), cur_w.dtype)
-        so[...] = jnp.zeros((8, 128), jnp.float32)
-
-    @pl.when(i > 0)
-    def _tail():
-        s_z0[:8] = s_z0[R : R + 8]
-        s_wt[...] = s_w[R - MEGA_HG :]
-
-    @pl.when(i < nT)
-    def _carry():
-        s_x[...] = cur_x
-        s_a[...] = cur_a
-        s_z0[8:] = cur_z0
-        s_z1[...] = cur_z1
-        s_w[...] = cur_w
-
-
-def _mega2_call(x, atb, z0, z1, corr, B, C, F, off, *, R, H_global, core_lo, core_hi,
-                tau, sigma, rho, lam, nonneg, interpret, vma=None, halos=None,
-                iso=True):
-    """Shared pallas_call for the single-chip and shard-aware mega2 paths.
-
-    Single-chip (``halos=None``): ``x``&co are the full (H, W) arrays.
-    Shard mode (``halos = (xt, xb, z0t, z0b, z1t, z1b)``, each (R, W)):
-    ``x``/``z0``/``z1`` are the device's CORE (h_loc, W) blocks, ``atb`` the
-    halo-EXTENDED (h_loc + 2R, W) block (iteration-constant, extended once
-    at init), and the outputs are core-shaped — halo stitching happens
-    in-VMEM, so no halo-extended iterate array ever touches HBM.  ``off``:
-    (1,) i32 global row of (ext) row 0; ``H_global``: global image height."""
-    shard = halos is not None
-    Hl, W = x.shape
-    if Hl % R:
-        raise ValueError(f"local height {Hl} must be divisible by {R}")
-    if W < 384 or W % 128:
-        raise ValueError(f"mega2 needs W % 128 == 0 and W >= 384, got {W}")
-    nTc = Hl // R  # body tiles
-    nT = nTc + 2 if shard else nTc  # ext tiles the sweep walks
-    off_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    if shard:
-        body_spec = pl.BlockSpec(
-            (R, W), lambda i: (jnp.clip(jnp.minimum(i, nT - 1) - 1, 0, nTc - 1), 0)
-        )
-        a_spec = pl.BlockSpec((R, W), lambda i: (jnp.minimum(i, nT - 1), 0))  # ext atb
-        halo_spec = pl.BlockSpec((R, W), lambda i: (0, 0))
-        out_spec = pl.BlockSpec((R, W), lambda i: (jnp.clip(i - 2, 0, nTc - 1), 0))
-    else:
-        body_spec = a_spec = pl.BlockSpec((R, W), lambda i: (jnp.minimum(i, nT - 1), 0))
-        out_spec = pl.BlockSpec((R, W), lambda i: (jnp.maximum(i - 1, 0), 0))
-    corr_spec = pl.BlockSpec((2 * MEGA_HG, W), lambda i: (0, 0))
-    b_spec = pl.BlockSpec(tuple(B.shape), lambda i: (0, 0))
-    c_spec = pl.BlockSpec(tuple(C.shape), lambda i: (0, 0))
-    f_spec = pl.BlockSpec((256, 256), lambda i: (0, 0))
-    stats_spec = pl.BlockSpec((8, 128), lambda i: (0, 0))
-    kern = functools.partial(
-        _tv_mega2_kernel, R=R, nT=nT, H=int(H_global), W=W,
-        tau=float(tau), sigma=float(sigma), rho=float(rho), lam=float(lam), nonneg=bool(nonneg),
-        core_lo=int(core_lo), core_hi=int(core_hi), shard=shard, iso=bool(iso),
-    )
-    cp = getattr(pltpu, "CompilerParams", None) or getattr(pltpu, "TPUCompilerParams")
-    # the R=32 working set + stats block slightly exceeds the 16MB scoped-
-    # vmem default at W=4096; raise it (v5e has 128MB VMEM per core)
-    try:
-        params = cp(dimension_semantics=("arbitrary",), vmem_limit_bytes=100 * 1024 * 1024)
-    except TypeError:  # pragma: no cover - older pallas without the knob
-        params = cp(dimension_semantics=("arbitrary",))
-    sds = functools.partial(jax.ShapeDtypeStruct, **({"vma": vma} if vma is not None else {}))
-    in_specs = [off_spec, body_spec, a_spec, body_spec, body_spec]
-    inputs = [off, x, atb, z0, z1]
-    if shard:
-        in_specs += [halo_spec] * 6
-        inputs += list(halos)
-    in_specs += [corr_spec, b_spec, c_spec, f_spec]
-    inputs += [corr, B, C, F]
-    xn, z0n, z1n, stats = pl.pallas_call(
-        kern,
-        grid=(nT + 1,),
-        in_specs=in_specs,
-        out_specs=[out_spec] * 3 + [stats_spec],
-        out_shape=[sds((Hl, W), x.dtype)] * 3 + [sds((8, 128), jnp.float32)],
-        # in-place x/z0/z1 (see _sweep_call): kills the while-carry copies
-        input_output_aliases={1: 0, 3: 1, 4: 2},
-        scratch_shapes=[
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((R + 8, W), jnp.float32),
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((R, W), jnp.float32),
-            pltpu.VMEM((MEGA_HG, W), jnp.float32),
-        ],
-        compiler_params=params,
-        interpret=interpret,
-    )(*inputs)
-    return xn, z0n, z1n, stats
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tau", "sigma", "rho", "lam", "nonneg", "interpret", "mega_r", "iso")
-)
-def tv_pds_mega2_step(x, z0, z1, atb, corr, B, C, F, *, tau: float, sigma: float, rho: float, lam: float, nonneg: bool = True, interpret: bool = False, mega_r: int = None, iso: bool = True):
-    """One full TV PDS iteration with BOTH Gram directions fused into the
-    sweep stencil kernel — no separate ColGram pass, no w HBM array.
-
-    The duals ``z0``/``z1`` travel as SEPARATE (H, W) arrays: slicing a
-    stacked (2, H, W) dual into kernel operands and re-stacking the outputs
-    costs ~0.4 ms/iter of hidden copies at 4096^2 (measured; XLA cannot
-    alias slices across a pallas_call boundary).
-
-    ``C`` is the (256, 128) merged [Cc; C_0] lane-band stack and ``F`` the
-    (256, 256) corner-fix matrix, both from :func:`make_mega2_lane_plan`;
-    ``corr`` the (2*MEGA_HG, W) x2-scaled row-Gram edge correction (computed
-    from the first/last rows of x by the caller); ``B`` from
-    :func:`make_mega_band`.  Equivalent to
-    ``tv_pds_stencil_step_xla(x, z, 2*(Gram(x) - atb), ...)``.
-
-    Returns ``(x_new, z0_new, z1_new, stats)`` where ``stats`` is a (8, 128)
-    block whose lanes ``[0, :6]`` hold the metric partial sums
-    (:func:`_stats_update`) — the stopping/diagnostic reductions at zero
-    extra HBM traffic (VERDICT r2 task 3).
-    """
-    H, W = x.shape
-    R = MEGA_R if mega_r is None else int(mega_r)
-    return _mega2_call(
-        x, atb, z0, z1, corr, B, C, F, jnp.zeros((1,), jnp.int32),
-        R=R, H_global=H, core_lo=0, core_hi=H // R - 1,
-        tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, interpret=interpret,
-        iso=iso,
-    )
-
-
-def tv_pds_mega2_shard_step(x, z0, z1, atb_ext, halos, corr, B, C, F, off, *,
-                            H_global: int, tau: float, sigma: float, rho: float,
-                            lam: float, nonneg: bool = True, interpret: bool = False,
-                            mega_r: int = None, vma=None, iso: bool = True):
-    """Shard-local mega2 step for a row-sharded image (called INSIDE
-    ``shard_map``; the distributed realisation of the reference's hot loop,
-    /root/reference/pycsou/opt/proxalgs.py:343-355).
-
-    ``x``/``z0``/``z1`` are the device's CORE (h_loc, W) blocks and
-    ``halos = (xt, xb, z0t, z0b, z1t, z1b)`` the six (R, W) neighbour-row
-    blocks from ``ppermute`` (zeros at the global edges — exactly the
-    Gram's zero boundary condition).  The kernel stitches them in-VMEM and
-    writes core-shaped outputs, so no halo-extended iterate array ever
-    touches HBM (~9 full-array streams/iteration cheaper than
-    concatenate-outside).  ``atb_ext`` is the (h_loc + 2R, W) halo-extended
-    A^H y, extended ONCE at solver init (iteration-constant).
-
-    ``off`` is the (1,) i32 GLOBAL row of ext row 0 (= device_row0 - R), so
-    all boundary masks, the dual invariants and the first/last-tile edge
-    corrections land on GLOBAL rows; ``corr`` is computed per-device from
-    its own local edge rows (only the flags gate its application, so
-    mid-mesh devices' values are never read).
-
-    Returns core-shaped (x, z0, z1) plus the (8, 128) stats block
-    accumulated over core output tiles only (psum it across the mesh for
-    the global metric).  ``vma``: pass ``frozenset({axis_name})`` when
-    tracing under ``shard_map`` with vma checking enabled."""
-    h_loc, W = x.shape
-    R = MEGA_R if mega_r is None else int(mega_r)
-    nT = h_loc // R + 2
-    if nT < 3:
-        raise ValueError(f"shard block of {h_loc} rows needs >= 1 tile of {R}")
-    return _mega2_call(
-        x, atb_ext, z0, z1, corr, B, C, F, off,
-        R=R, H_global=H_global, core_lo=1, core_hi=nT - 2,
-        tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, interpret=interpret,
-        vma=vma, halos=halos, iso=iso,
-    )
-
-
-# ---------------------------------------------------------------------------
-# Mega3: TWO full PDS iterations per kernel pass
-#
-# Mega2's iteration is stream-bound plus ~7 us/step of non-overlapped
-# compute.  Fusing two iterations into one sweep amortises every HBM
-# stream over two iterations: the kernel reads x/atb/z0/z1 tiles once,
-# runs stage 1 (iteration t+1) on tile i-1 and stage 2 (iteration t+2) on
-# tile i-2 — a two-deep software pipeline whose stage-1 results (x1, duals,
-# their lane Gram) live in VMEM rings and are never written to HBM.  The
-# stage-2 row-Gram edge corrections are computed IN-kernel from stage-1's
-# first/last tiles (padded (HG, 32) E-matrices).  Grid nT+2 sequential
-# steps; outputs are iteration t+2.
-# ---------------------------------------------------------------------------
-
-
-def make_mega3_corr_mats(g_rows_E, L_r: int):
-    """Padded x2-scaled row-Gram edge-correction matrices for the in-kernel
-    stage-2 corr: ``Et_p`` (HG, 32) reads the first 32 rows of w1's first
-    tile, ``Eb_p`` (HG, 32) the last 32 rows of its last tile.  Zero
-    matrices when the Gram has no edge corrections (K == 1)."""
-    import numpy as np
-
-    HG = MEGA_HG
-    Et_p = np.zeros((HG, 32), np.float32)
-    Eb_p = np.zeros((HG, 32), np.float32)
-    if g_rows_E is not None:
-        Etr, Ebr = (np.asarray(m) for m in g_rows_E)
-        K1 = Etr.shape[0]
-        if L_r > 32 or K1 > HG:
-            raise ValueError("row-Gram corrections exceed the mega3 windows")
-        Et_p[:K1, :L_r] = 2.0 * Etr
-        Eb_p[HG - K1 :, 32 - L_r :] = 2.0 * Ebr
-    return Et_p, Eb_p
-
-
-def _tv_mega3_kernel(x_ref, a_ref, z0_ref, z1_ref, b_ref, c_ref, f_ref,
-                     et_ref, eb_ref, xo, z0o, z1o, so,
-                     s_x, s_a0, s_a1, s_z0, s_z1, s_w, s_wt,
-                     s_x1, s_z01, s_z11, s_w1, s_w1t, s_corr, s_corr0,
-                     *, R, nT, H, W, tau, sigma, rho, lam, nonneg, iso=True):
-    i = pl.program_id(0)
-    HG = MEGA_HG
-
-    # zero-init the scratch a masked consumer could read before its first
-    # real write (uninitialised VMEM may hold NaN: mask * NaN == NaN)
-    @pl.when(i == 0)
-    def _init0():
-        s_z0[:8] = jnp.zeros((8, W), jnp.float32)
-        s_wt[...] = jnp.zeros((HG, W), jnp.float32)
-        s_corr[...] = jnp.zeros((2 * HG, W), jnp.float32)
-        s_corr0[...] = jnp.zeros((2 * HG, W), jnp.float32)
-        so[...] = jnp.zeros((8, 128), jnp.float32)
-
-    @pl.when(i <= 1)
-    def _init1():
-        s_z01[:8] = jnp.zeros((8, W), jnp.float32)
-        s_w1t[...] = jnp.zeros((HG, W), jnp.float32)
-
-    cur_x = x_ref[...]
-    cur_a = a_ref[...]
-    cur_z0 = z0_ref[...]
-    cur_z1 = z1_ref[...]
-    c_mat = c_ref[...]
-    f_mat = f_ref[...]
-    dt = cur_x.dtype
-    HIP = jax.lax.Precision.HIGHEST
-
-    cur_w = _lane_gram_tile(cur_x, c_mat, f_mat, W)
-
-    # iteration-t row-Gram edge corrections, from the first/last input
-    # tiles' lane Grams (written BEFORE their stage-1 uses at steps 1 / nT)
-    @pl.when(i == 0)
-    def _corr0_top():
-        s_corr0[:HG] = jnp.dot(et_ref[...], cur_w[:32], precision=jax.lax.Precision.HIGHEST, preferred_element_type=jnp.float32).astype(dt)
-
-    @pl.when(i == nT - 1)
-    def _corr0_bot():
-        s_corr0[HG:] = jnp.dot(eb_ref[...], cur_w[R - 32 :], precision=jax.lax.Precision.HIGHEST, preferred_element_type=jnp.float32).astype(dt)
-
-    # ---- stage 1: iteration t+1 on tile j1 = i-1 (garbage at i==0 and
-    # i==nT+1; every consumer of those results is overwritten or masked) ---
-    j1 = i - 1
-    row1 = j1 * R
-    last_f1 = jnp.where(i >= nT, 0.0, 1.0).astype(dt)  # head tile j1+1 = i
-    gsum1 = _mega_row_gram(
-        s_wt[...], s_w[...], (cur_w * last_f1)[:HG], b_ref[...], s_corr0[...],
-        jnp.where(j1 == 0, 1.0, 0.0).astype(dt),
-        jnp.where(j1 == nT - 1, 1.0, 0.0).astype(dt),
-        R, W, dt,
-    )
-    aw1 = jnp.concatenate([s_a0[...], cur_a[:8]], axis=0)
-    gw1 = gsum1 - 2.0 * aw1
-    xw1 = jnp.concatenate([s_x[...], cur_x[:8]], axis=0)
-    z0w1 = jnp.concatenate([s_z0[8:], cur_z0[:8]], axis=0)
-    z0up1 = jnp.concatenate([s_z0[7 : R + 8], cur_z0[:7]], axis=0)
-    z1w1 = jnp.concatenate([s_z1[...], cur_z1[:8]], axis=0)
-    x1, z01, z11 = _pds_stencil(
-        xw1, gw1, z0w1, z0up1, z1w1, row1, R, H, W, tau, sigma, rho, lam, nonneg,
-        iso=iso,
-    )
-    w1 = _lane_gram_tile(x1, c_mat, f_mat, W)
-
-    # stage-2 row-Gram edge corrections from stage-1's first/last tiles
-    @pl.when(j1 == 0)
-    def _corr_top():
-        s_corr[:HG] = jnp.dot(et_ref[...], w1[:32], precision=HIP, preferred_element_type=jnp.float32).astype(dt)
-
-    @pl.when(j1 == nT - 1)
-    def _corr_bot():
-        s_corr[HG:] = jnp.dot(eb_ref[...], w1[R - 32 :], precision=HIP, preferred_element_type=jnp.float32).astype(dt)
-
-    # ---- stage 2: iteration t+2 on tile j2 = i-2 (garbage at i<2,
-    # overwritten by the revisit of out block 0) ---------------------------
-    j2 = i - 2
-    row2 = j2 * R
-    last_f2 = jnp.where(i >= nT + 1, 0.0, 1.0).astype(dt)  # head tile j2+1 = i-1
-    gsum2 = _mega_row_gram(
-        s_w1t[...], s_w1[...], (w1 * last_f2)[:HG], b_ref[...], s_corr[...],
-        jnp.where(j2 == 0, 1.0, 0.0).astype(dt),
-        jnp.where(j2 == nT - 1, 1.0, 0.0).astype(dt),
-        R, W, dt,
-    )
-    aw2 = jnp.concatenate([s_a1[...], s_a0[:8]], axis=0)
-    gw2 = gsum2 - 2.0 * aw2
-    xw2 = jnp.concatenate([s_x1[...], x1[:8]], axis=0)
-    z0w2 = jnp.concatenate([s_z01[8:], z01[:8]], axis=0)
-    z0up2 = jnp.concatenate([s_z01[7 : R + 8], z01[:7]], axis=0)
-    z1w2 = jnp.concatenate([s_z11[...], z11[:8]], axis=0)
-    x2, z02, z12 = _pds_stencil(
-        xw2, gw2, z0w2, z0up2, z1w2, row2, R, H, W, tau, sigma, rho, lam, nonneg,
-        iso=iso,
-    )
-    xo[...] = x2
-    z0o[...] = z02
-    z1o[...] = z12
-
-    # metric partial sums of the SECOND (final) iteration only — the stage-2
-    # "old" windows are iteration t+1's tiles, so the stats measure a
-    # single-iteration improvement: mega3 gets the reference's per-iteration
-    # stopping semantics despite stepping two iterations at a time
-    # (VERDICT r2 task 4)
-    @pl.when(jnp.logical_and(i >= 2, i < nT + 2))
-    def _stats():
-        _stats_update(
-            so, [(x2, xw2[:R]), (z02, z0w2[:R]), (z12, z1w2[:R])]
-        )
-
-    # ---- ring updates (tails capture OLD ring contents, then carry) ------
-    @pl.when(i > 0)
-    def _tail0():
-        s_z0[:8] = s_z0[R : R + 8]
-        s_wt[...] = s_w[R - HG :]
-
-    @pl.when(i < nT)
-    def _carry0():
-        s_x[...] = cur_x
-        s_z0[8:] = cur_z0
-        s_z1[...] = cur_z1
-        s_w[...] = cur_w
-
-    @pl.when(i > 1)
-    def _tail1():
-        s_z01[:8] = s_z01[R : R + 8]
-        s_w1t[...] = s_w1[R - HG :]
-
-    # atb ring shifts every step (stage 2 reads the clamped repetition of
-    # the last tile at the trailing steps, which is exactly tile j2)
-    s_a1[...] = s_a0[...]
-    s_a0[...] = cur_a
-    # stage-1 result rings (garbage written at i==0 / i==nT+1 is overwritten
-    # or guarded by the zeroed tails before any valid stage-2 use)
-    s_x1[...] = x1
-    s_z01[8:] = z01
-    s_z11[...] = z11
-    s_w1[...] = w1
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tau", "sigma", "rho", "lam", "nonneg", "interpret", "mega_r", "iso")
-)
-def tv_pds_mega3_step(x, z0, z1, atb, B, C, F, Et_p, Eb_p, *, tau: float, sigma: float, rho: float, lam: float, nonneg: bool = True, interpret: bool = False, mega_r: int = 32, iso: bool = True):
-    """TWO full TV PDS iterations in one fused sweep (see module comment).
-
-    Inputs as :func:`tv_pds_mega2_step` plus the padded corr matrices from
-    :func:`make_mega3_corr_mats`; BOTH iterations' row-Gram edge
-    corrections are computed in-kernel (iteration t's from the first/last
-    input tiles' lane Grams, iteration t+1's from stage-1's).
-    Returns ``(x, z0, z1, stats)`` — the state after TWO iterations plus the
-    (8, 128) metric partial-sum block measuring the SECOND iteration's
-    improvement only (single-iteration stopping semantics).  Requires
-    ``mega_r == 32`` (the in-kernel corr reads 32-row slices) and ``nT >= 2``.
-    """
-    H, W = x.shape
-    R = int(mega_r)
-    if R != 32:
-        raise ValueError("mega3 requires 32-row tiles")
-    if H % R or H // R < 2:
-        raise ValueError(f"H={H} must be a multiple of {R} with >= 2 tiles")
-    if W < 384 or W % 128:
-        raise ValueError(f"mega3 needs W % 128 == 0 and W >= 384, got {W}")
-    nT = H // R
-    in_spec = pl.BlockSpec((R, W), lambda i: (jnp.minimum(i, nT - 1), 0))
-    b_spec = pl.BlockSpec(tuple(B.shape), lambda i: (0, 0))
-    c_spec = pl.BlockSpec(tuple(C.shape), lambda i: (0, 0))
-    f_spec = pl.BlockSpec((256, 256), lambda i: (0, 0))
-    e_spec = pl.BlockSpec((MEGA_HG, 32), lambda i: (0, 0))
-    out_spec = pl.BlockSpec((R, W), lambda i: (jnp.maximum(i - 2, 0), 0))
-    stats_spec = pl.BlockSpec((8, 128), lambda i: (0, 0))
-    kern = functools.partial(
-        _tv_mega3_kernel, R=R, nT=nT, H=H, W=W,
-        tau=float(tau), sigma=float(sigma), rho=float(rho), lam=float(lam), nonneg=bool(nonneg), iso=bool(iso),
-    )
-    cp = getattr(pltpu, "CompilerParams", None) or getattr(pltpu, "TPUCompilerParams")
-    tile = lambda rows: pltpu.VMEM((rows, W), jnp.float32)
-    # two pipeline stages of rings + double-buffered blocks exceed the
-    # default 16MB scoped-vmem budget at W=4096 (~20MB); raise it (v5e has
-    # 128MB VMEM per core)
-    try:
-        params = cp(dimension_semantics=("arbitrary",), vmem_limit_bytes=100 * 1024 * 1024)
-    except TypeError:  # pragma: no cover - older pallas without the knob
-        params = cp(dimension_semantics=("arbitrary",))
-    xn, z0n, z1n, stats = pl.pallas_call(
-        kern,
-        grid=(nT + 2,),
-        in_specs=[in_spec, in_spec, in_spec, in_spec, b_spec, c_spec, f_spec, e_spec, e_spec],
-        out_specs=[out_spec] * 3 + [stats_spec],
-        out_shape=[jax.ShapeDtypeStruct((H, W), x.dtype)] * 3
-        + [jax.ShapeDtypeStruct((8, 128), jnp.float32)],
-        # in-place x/z0/z1: output tile i-2 is written strictly after its
-        # input tiles were consumed into the VMEM rings, so the double-step
-        # sweep may alias — kills the XLA while-carry copies (xprof: 3 x
-        # ~205 us per double-step at 4096^2, ~18% of end-to-end)
-        input_output_aliases={0: 0, 2: 1, 3: 2},
-        scratch_shapes=[
-            tile(R), tile(R), tile(R), tile(R + 8), tile(R), tile(R), tile(MEGA_HG),  # stage-0
-            tile(R), tile(R + 8), tile(R), tile(R), tile(MEGA_HG),  # stage-1
-            tile(2 * MEGA_HG), tile(2 * MEGA_HG),  # s_corr (stage-2), s_corr0 (stage-1)
-        ],
-        compiler_params=params,
-        interpret=interpret,
-    )(x, atb, z0, z1, B, C, F, Et_p, Eb_p)
-    return xn, z0n, z1n, stats
-
-
-def tv_pds_stencil_step_xla(x, z, g, *, tau, sigma, rho, lam, nonneg=True, iso=True):
-    """Pure-XLA twin of the fused kernel (correctness oracle / CPU path)."""
+def tv_pds_stencil_step_xla(x, z0, z1, g, *, tau, sigma, rho, lam, nonneg=True, iso=True):
+    """Stencil/prox/momentum part of one TV PDS iteration.
+
+    x, z0, z1, g: (H, W); g = grad of the data term at x.  Returns
+    ``(x_new, z0_new, z1_new)``."""
     from pycsou_tpu.ops.diff import fdiff_forward, fdiff_forward_adjoint
 
-    div = fdiff_forward_adjoint(z[0], 0) + fdiff_forward_adjoint(z[1], 1)
+    div = fdiff_forward_adjoint(z0, 0) + fdiff_forward_adjoint(z1, 1)
     x_t = x - tau * g - tau * div
     if nonneg:
         x_t = jnp.maximum(x_t, 0.0)
     u = 2.0 * x_t - x
-    v = z + sigma * jnp.stack([fdiff_forward(u, 0), fdiff_forward(u, 1)], axis=0)
-    if iso:
-        mag = jnp.sqrt(jnp.sum(v * v, axis=0, keepdims=True))
-        z_t = v * (lam / jnp.maximum(mag, lam))
-    else:
-        z_t = jnp.clip(v, -lam, lam)
-    x_new = rho * x_t + (1.0 - rho) * x
-    z_new = rho * z_t + (1.0 - rho) * z
-    return x_new, z_new
+    z0_t, z1_t = _dual_prox(
+        z0 + sigma * fdiff_forward(u, 0), z1 + sigma * fdiff_forward(u, 1), lam, iso
+    )
+    return (
+        rho * x_t + (1.0 - rho) * x,
+        rho * z0_t + (1.0 - rho) * z0,
+        rho * z1_t + (1.0 - rho) * z1,
+    )

@@ -32,10 +32,8 @@ __all__ = [
 def conv_full_direct(a: jax.Array, h: jax.Array, h_hat=None) -> jax.Array:
     """Small 'full'-mode 2-D convolution for thin boundary strips.
 
-    FFT-based: single-channel ``lax.conv`` is pathologically slow to compile
-    and run on some TPU backends, while small rFFTs ride the well-tuned FFT
-    path.  Strip arrays are thin, so these FFTs are tiny next to the main
-    Gram roundtrip.  Pass ``h_hat`` (from :func:`full_transfer` for the same
+    FFT-based: strip arrays are thin, so these FFTs are tiny next to the
+    main Gram roundtrip.  Pass ``h_hat`` (from :func:`full_transfer` for the same
     slab shape) to skip the kernel FFT."""
     from pycsou_tpu.ops.conv import next_fast_len
 
@@ -108,7 +106,7 @@ def make_pad_cache(dim_shape: Tuple[int, int], filt_np: np.ndarray) -> dict:
         start1 = max(0, n1 - (m1 - 1))
         cache["frame_right_h"] = full_transfer(filt, (n0, n1 - start1))
         cache["frame_right_c"] = full_transfer(f, (n0, b1))
-    # re/im split: complex d2h is unimplemented on some TPU runtimes
+    # re/im split: real pairs keep closure-jit usable
     return {
         k: ((jnp.real(v), jnp.imag(v)) if jnp.iscomplexobj(v) else v)
         for k, v in cache.items()
@@ -218,8 +216,8 @@ def make_wrap_cache(dim_shape: Tuple[int, int], filt_np: np.ndarray) -> dict:
     if b1 > 0:
         cache["frame_right_h"] = ft(filt, (n0, m1 - 1))
         cache["frame_right_c"] = ft(f, (n0, b1))
-    # split complex transfers into re/im pairs: complex d2h is unimplemented
-    # on some TPU runtimes, and split-real keeps closure-jit usable
+    # split complex transfers into re/im pairs: split-real keeps closure-jit
+    # usable
     return {
         k: ((jnp.real(v), jnp.imag(v)) if jnp.iscomplexobj(v) else v)
         for k, v in cache.items()

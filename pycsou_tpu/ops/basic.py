@@ -1,9 +1,9 @@
 """Structural operators: dense/sparse/diagonal/identity/null/homothety/
 polynomial.
 
-TPU-native equivalents of /root/reference/pycsou/linop/base.py:24-712.
-Dense matvecs run on the MXU (``preferred_element_type`` pinned to f32
-accumulation); sparse operators use JAX BCOO instead of scipy.sparse; the
+Equivalents of the reference's pycsou/linop/base.py:24-712.
+Dense matvecs are matmuls with ``preferred_element_type`` pinned to f32
+accumulation; sparse operators use JAX BCOO instead of scipy.sparse; the
 Dask-array branch of the reference's ``ExplicitLinearOperator``
 (base.py:87-99) is replaced by mesh-sharded dense operators in
 ``pycsou_tpu.parallel``.
@@ -37,7 +37,7 @@ _INF = float("inf")
 class DenseOperator(LinearOperator):
     """Matrix-backed operator (reference ``DenseLinearOperator``,
     linop/base.py:102).  ``mat`` has shape ``(codim_size, dim_size)``; inputs
-    are flattened, outputs reshaped, and the contraction runs on the MXU with
+    are flattened, outputs reshaped, and the contraction is a matmul with
     f32 accumulation.
 
     Example::

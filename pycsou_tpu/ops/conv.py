@@ -1,14 +1,14 @@
 """Convolution operators: FFT-based and direct 1-D/2-D convolution, moving
 averages.
 
-TPU-native equivalent of /root/reference/pycsou/linop/conv.py (422 LoC, which
-delegates to pylops/scipy.signal).  Design:
+Equivalent of the reference's pycsou/linop/conv.py (422 LoC, which delegates
+to pylops/scipy.signal).  Design:
 
 * ``method='fft'`` — linear convolution via zero-padded r/c-FFT (``jnp.fft``,
   XLA-fused); the 'same'-size centering matches the reference's even/odd
   offset convention (conv.py:159-162).
-* ``method='direct'`` — ``lax.conv_general_dilated`` (MXU/VPU path, best for
-  short filters).
+* ``method='direct'`` — ``lax.conv_general_dilated`` (best for short
+  filters).
 * Adjoint (= correlation) is derived by ``jax.linear_transpose`` of the pure
   ``apply`` — no hand-maintained adjoint code.
 * Exact Lipschitz constant for free: ``max |FFT(h)|`` on the padded grid
@@ -21,6 +21,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+import scipy.fft
 
 from pycsou_tpu._module import static_field
 from pycsou_tpu.core.linop import LinearOperator
@@ -37,23 +38,14 @@ __all__ = [
 
 
 def next_fast_len(n: int) -> int:
-    """Smallest fast-on-TPU FFT size >= n: ``2^a * 3^b`` with ``b <= 2``.
+    """Smallest 5-smooth FFT size >= n (``scipy.fft.next_fast_len``).
 
-    Measured on TPU v5e at ~4K sizes (chained gram roundtrips): 4608 = 2^9*3^2
-    runs 13.8 ms, 4320 = 2^5*3^3*5 18.7 ms, 4374 = 2*3^7 67 ms — the backend
-    FFT strongly prefers power-of-2-dominant radices; deep radix-3 and radix-5
-    stages are slow.  Padding a linear convolution beyond n+m-1 is free (the
-    extra tail only wraps zeros).
+    Padding a linear convolution beyond n+m-1 is free (the extra tail only
+    wraps zeros).  On an H100 (700 W) the 5-smooth 4320 beat the
+    power-of-two-dominant 4608 (``2^a 3^b``, b <= 2) for a 4096^2 image with
+    a 15x15 kernel: 0.752 vs 0.818 ms per rfft2 roundtrip (PERF.md).
     """
-    if n <= 2:
-        return n
-    best = 1 << (n - 1).bit_length()  # next power of two is always valid
-    for mult in (3, 9):
-        k = mult
-        while k < n:
-            k *= 2
-        best = min(best, k)
-    return best
+    return int(scipy.fft.next_fast_len(int(n), real=True))
 
 
 def _fft_lipschitz(filt: np.ndarray, padded_shape: Tuple[int, ...]) -> float:
@@ -119,8 +111,7 @@ class Convolve1D(LinearOperator):
         self.filt = filt
         # precompute the transfer function once; recomputing the zero-padded
         # filter FFT per apply would cost a full-size FFT per matvec.
-        # Stored as re/im pairs: some TPU runtimes cannot transfer complex
-        # constants host-side, and split-real keeps closure-jit usable.
+        # Stored as re/im pairs: split-real keeps closure-jit usable.
         if method == "fft":
             hh = jnp.fft.rfft(filt, n=next_fast_len(n + m - 1))
         elif method == "overlap-add":
@@ -140,7 +131,7 @@ class Convolve1D(LinearOperator):
     @property
     def h_hat(self):
         """Frequency-domain transfer function, stored as re/im pairs
-        (complex d2h is unimplemented on some TPU runtimes)."""
+        (split real pairs keep closure-jit usable)."""
         return jax.lax.complex(self.h_hat_re, self.h_hat_im)
 
     def apply(self, x):
@@ -168,7 +159,7 @@ class Convolve1D(LinearOperator):
             # last tail extends past nb*L; append it so the 'same' crop is safe
             full = jnp.concatenate([full, tails[-1]])
             return full[ofs : ofs + n].astype(x.dtype)
-        # direct path: lax 1-D convolution on the VPU
+        # direct path: lax 1-D convolution
         lhs = x[None, None, :]
         rhs = self.filt[::-1][None, None, :]
         out = jax.lax.conv_general_dilated(
@@ -212,12 +203,16 @@ class ConvGram1D(LinearOperator):
 class Convolve2D(LinearOperator):
     """2-D convolution with a compact kernel (reference linop/conv.py:167-295).
 
-    ``method='auto'`` dispatch, fastest first on TPU:
+    ``method='auto'`` picks the faster route measured on an H100 (700 W) at
+    4096^2 with 15x15 kernels (PERF.md):
 
-    * ``'band'`` — low-rank (separable) kernels as 2r banded MXU matmul
-      passes (kernels/band.py), no FFT;
-    * ``'direct'`` — ``lax.conv`` for tiny full-rank kernels;
-    * ``'fft'`` — zero-padded rFFT with cached transfer function.
+    * ``'band'`` — rank-1 (separable) kernels as 2 banded matmul passes
+      (kernels/band.py), no FFT: 0.63 ms per apply vs 0.93 ms for the FFT;
+    * ``'fft'`` — everything else: zero-padded rFFT with cached transfer
+      function (0.93 ms at any rank; rank-2 band passes took 1.25 ms).
+
+    ``'band'`` (rank <= 4) and ``'direct'`` (``lax.conv``; 2.7 ms there)
+    stay available on request.
 
     Example::
 
@@ -240,29 +235,14 @@ class Convolve2D(LinearOperator):
     band_col: tuple = None
     band_row_adj: tuple = None
     band_col_adj: tuple = None
-    # channel-conv form of the column (lane) passes: no pad copy, MXU work
-    # ~ CHAN_TILE instead of 128 (kernels/band.py make_chanconv); None when
+    # channel-conv form of the column (lane) passes: no pad copy, matmul
+    # work ~ CHAN_TILE instead of 128 (kernels/band.py make_chanconv); None when
     # the width is not tile-aligned or the band reach exceeds the window
     band_col_chan: tuple = None
     band_col_adj_chan: tuple = None
-    # fused one-pass sweep matvec plans (kernels/conv2d.py): rank <= 4
-    # kernels on TPU run forward/adjoint as ONE pallas sweep (2 HBM streams
-    # instead of the 2r-pass banded path's ~6r incl. pad/carry copies)
-    mv_B: jax.Array = None
-    mv_C: jax.Array = None
-    mv_Ba: jax.Array = None
-    mv_Ca: jax.Array = None
-    # grouped factor plans for rank 5-16 kernels (method='bandg'): the sweep
-    # kernel's VMEM rings accumulate at most 4 ranks per pass, so wider
-    # low-rank PSFs run as the SUM of ceil(r/4) fused sweeps (2 HBM streams
-    # per pass) — still far cheaper than the FFT path these kernels
-    # previously took (VERDICT r3 task 6 generalized the 2-group scheme).
-    # Tuple of (B, C, Ba, Ca) per group, INCLUDING the first.
-    mv_groups: tuple = None
     method: str = static_field(default="fft")
     band_leads: tuple = static_field(default=None)
     band_rank: int = static_field(default=0)
-    mv_r: int = static_field(default=0)
     # certified operator-norm bound on the SVD-truncation error (0.0 when
     # no truncation was requested): ||A - A_trunc||_2 <= ||h - h_trunc||_1
     # (the transfer function of a zero-padded 'same' conv is bounded by the
@@ -294,31 +274,18 @@ class Convolve2D(LinearOperator):
             trunc_bound = float(np.abs(f64 - f_t).sum())
             filt = jnp.asarray(f_t, dtype=dtype)
         fac = None
-        was_auto = method == "auto"
+        if method == "bandg":
+            raise ValueError(
+                "method='bandg' (grouped fused sweeps) was removed; use 'auto', "
+                "'fft', 'direct' or 'band'"
+            )
         if method in ("auto", "band"):
             fac = self._band_factors(filt)
             if method == "band" and fac is None:
                 raise ValueError("kernel is not low-rank/band-eligible")
             if method == "auto":
-                method = "band" if fac is not None else ("direct" if filt.size <= 81 else "fft")
-        facg = None
-        if method == "bandg" or (
-            was_auto and method in ("fft", "direct") and jax.default_backend() not in ("cpu",)
-        ):
-            # rank 5-16: grouped fused sweeps (ceil(r/4) rank<=4 passes,
-            # summed) — beats both fallbacks on TPU (the FFT roundtrip at any
-            # size; lax.conv, which lowers poorly for (1,1,H,W) layouts).
-            # Beyond rank 16 the ~0.7 ms/pass x 2*ceil(r/4) Gram cost crosses
-            # the FFT wrap-Gram's, so auto keeps the FFT there.
-            facg = _grouped_sweep_plans(filt, dim_shape)
-            if facg is not None:
-                method = "bandg"
-            elif method == "bandg":
-                raise ValueError(
-                    "method='bandg' needs a rank 5-16 kernel and a sweep-"
-                    "eligible shape (W % 128 == 0, W >= 384, H % 8 == 0)"
-                )
-        if method not in ("fft", "direct", "band", "bandg"):
+                method = "band" if fac is not None and fac[0].shape[1] == 1 else "fft"
+        if method not in ("fft", "direct", "band"):
             raise ValueError("method must be 'auto', 'fft', 'direct' or 'band'")
         padded = tuple(n + k - 1 for n, k in zip(dim_shape, filt.shape))
         lip = _fft_lipschitz(np.asarray(filt), padded)
@@ -333,12 +300,7 @@ class Convolve2D(LinearOperator):
         self.band_col_chan = self.band_col_adj_chan = None
         self.band_leads = None
         self.band_rank = 0
-        self.mv_B = self.mv_C = self.mv_Ba = self.mv_Ca = None
-        self.mv_groups = None
-        self.mv_r = 0
         self.svd_trunc_bound = trunc_bound
-        if method == "bandg":
-            self.mv_groups, self.mv_r = facg
         if method == "band":
             from pycsou_tpu.kernels.band import make_band_blocks
 
@@ -370,38 +332,6 @@ class Convolve2D(LinearOperator):
                 if all(c is not None for c in cf + cb):
                     self.band_col_chan = tuple(jnp.asarray(c) for c in cf)
                     self.band_col_adj_chan = tuple(jnp.asarray(c) for c in cb)
-            # one-pass fused sweep matvec (TPU only; the plan is
-            # shape/rank-gated — any rank <= 4 accumulates in-kernel)
-            if jax.default_backend() not in ("cpu",):
-                from pycsou_tpu.kernels.conv2d import make_sepconv_plan_pair
-
-                pp = make_sepconv_plan_pair(np.asarray(us), vs_np, dim_shape)
-                if pp is not None:
-                    self.mv_B, self.mv_C, self.mv_Ba, self.mv_Ca, self.mv_r = pp
-
-    def _without_pallas(self) -> "Convolve2D":
-        """GSPMD-safe twin: drop the fused-sweep matvec plans so apply/
-        adjoint stay on the banded XLA passes (``_module.strip_pallas``);
-        grouped-sweep (rank 5-16) operators drop to the FFT path."""
-        if not self.mv_r:
-            return self
-        out = self.replace(
-            mv_B=None, mv_C=None, mv_Ba=None, mv_Ca=None,
-            mv_groups=None, mv_r=0,
-        )
-        if self.method == "bandg":
-            # the transfer function is built lazily here (strip_pallas runs
-            # host-side, outside jit) so the hot bandg operator never holds
-            # the ~tens-of-MB padded rfft2 it doesn't use
-            s = tuple(
-                next_fast_len(n + k - 1)
-                for n, k in zip(self.dim_shape, self.filt.shape)
-            )
-            hh = jnp.fft.rfft2(self.filt, s=s)
-            out = out.replace(
-                method="fft", h_hat_re=jnp.real(hh), h_hat_im=jnp.imag(hh)
-            )
-        return out
 
     @staticmethod
     def _band_factors(filt):
@@ -417,25 +347,13 @@ class Convolve2D(LinearOperator):
     @property
     def h_hat(self):
         """Frequency-domain transfer function, stored as re/im pairs
-        (complex d2h is unimplemented on some TPU runtimes)."""
+        (split real pairs keep closure-jit usable)."""
         return jax.lax.complex(self.h_hat_re, self.h_hat_im)
 
     def apply(self, x):
         (n0, n1), (m0, m1) = self.dim_shape, self.filt.shape
         o0, o1 = m0 // 2, m1 // 2
-        if self.method == "bandg":
-            from pycsou_tpu.kernels.conv2d import sepconv2d_sweep
-
-            out = None
-            for B, C, _, _ in self.mv_groups:
-                t = sepconv2d_sweep(x, B, C, r=self.mv_r)
-                out = t if out is None else out + t
-            return out
         if self.method == "band":
-            if self.mv_r:
-                from pycsou_tpu.kernels.conv2d import sepconv2d_sweep
-
-                return sepconv2d_sweep(x, self.mv_B, self.mv_C, r=self.mv_r)
             from pycsou_tpu.kernels.band import band_conv_cols, band_conv_rows, chanconv_cols
 
             l_r, l_c = self.band_leads[0], self.band_leads[1]
@@ -464,20 +382,7 @@ class Convolve2D(LinearOperator):
         return out[0, 0]
 
     def adjoint(self, y):
-        if self.method == "bandg":
-            from pycsou_tpu.kernels.conv2d import sepconv2d_sweep
-
-            y = jnp.asarray(y)
-            out = None
-            for _, _, Ba, Ca in self.mv_groups:
-                t = sepconv2d_sweep(y, Ba, Ca, r=self.mv_r)
-                out = t if out is None else out + t
-            return out
         if self.method == "band":
-            if self.mv_r:
-                from pycsou_tpu.kernels.conv2d import sepconv2d_sweep
-
-                return sepconv2d_sweep(jnp.asarray(y), self.mv_Ba, self.mv_Ca, r=self.mv_r)
             from pycsou_tpu.kernels.band import band_conv_cols, band_conv_rows, chanconv_cols
 
             y = jnp.asarray(y)
@@ -495,23 +400,16 @@ class Convolve2D(LinearOperator):
 
     @property
     def gram(self):
-        """Fused exact A^H A.  Dispatch, fastest first:
+        """Fused exact A^H A.  Dispatch, fastest first (H100, 700 W, 4096^2,
+        15x15 kernels; PERF.md):
 
-        * low-rank (separable) kernels — 4r banded MXU matmul passes, no FFT
-          at all (``SeparableConvGram2D``; a rank-1 Gaussian PSF at 4096^2
-          runs ~10x faster than the FFT Gram);
+        * rank-1 (separable) kernels — banded matmul passes, no FFT at all
+          (``SeparableConvGram2D``): 0.72 ms vs 1.05 ms for the FFT Gram;
         * otherwise one FFT roundtrip + thin boundary corrections
-          (``ConvGram2D``, ops/_gram.py) instead of forward+adjoint.
-
-        Rank 5-16 kernels (method='bandg') compose the grouped fused sweeps:
-        ``A^H A = adjoint o forward`` is exact for 'same' convolutions, and
-        the 2*ceil(r/4) clean sweep passes beat the FFT roundtrip at 4096^2.
+          (``ConvGram2D``, ops/_gram.py) instead of forward+adjoint — the
+          rank-2 banded Gram took 2.4 ms there.
         """
-        if self.method == "bandg":
-            from pycsou_tpu.core.linop import LinOpComp, SymmetricLinearOperator
-
-            return SymmetricLinearOperator(LinOpComp(self.H, self))
-        g = SeparableConvGram2D.build(self)
+        g = SeparableConvGram2D.build(self, max_rank=1)
         if g is not None:
             return g
         return ConvGram2D(self)
@@ -600,44 +498,6 @@ def lowrank_factors(filt_np: np.ndarray, tol: float = 1e-6, max_rank: int = 4):
     return us, vs  # (m0, r), (m1, r)
 
 
-def _grouped_sweep_plans(filt, dim_shape, max_rank: int = 16):
-    """Fused-sweep plans for a rank 5-``max_rank`` kernel, split into
-    ceil(r/4) rank <= 4 factor groups (the sweep kernel's VMEM rings
-    accumulate at most 4 ranks per pass, kernels/conv2d.py).  Returns
-    ``(groups, tile_rows)`` where ``groups`` is a tuple of ``(B, C, Ba, Ca)``
-    plan quadruples, or None when the kernel/shape doesn't qualify.
-
-    ``max_rank=16`` (4 passes) is the measured crossover: each sweep pass
-    streams x once (~0.7 ms at 4096^2), so the 2*ceil(r/4)-pass Gram stays
-    under the FFT wrap-Gram beyond which auto keeps the FFT path
-    (reference linop/conv.py:285-295 runs every kernel through the FFT)."""
-    from pycsou_tpu.kernels.conv2d import make_sepconv_plan_pair
-
-    fac = lowrank_factors(np.asarray(filt), max_rank=max_rank)
-    if fac is None:
-        return None
-    us, vs = fac
-    r = us.shape[1]
-    if r <= 4:
-        return None
-    as_j = jnp.asarray
-    groups = []
-    tile_rows = None
-    for g0 in range(0, r, 4):
-        sl = slice(g0, min(g0 + 4, r))
-        pp = make_sepconv_plan_pair(us[:, sl], vs[:, sl], dim_shape)
-        if pp is None:
-            return None
-        B, C, Ba, Ca, rr = pp
-        # the sweep tile-row count depends only on (H, W)
-        # (kernels/conv2d.py), so all groups always agree — apply()/
-        # adjoint() rely on it, passing the single mv_r to every sweep
-        assert tile_rows is None or rr == tile_rows
-        tile_rows = rr
-        groups.append((as_j(B), as_j(C), as_j(Ba), as_j(Ca)))
-    return tuple(groups), tile_rows
-
-
 class SeparableConvGram2D(LinearOperator):
     """Exact Gram ``A^H A`` of a 'same' 2-D convolution with a LOW-RANK
     kernel, computed with ZERO FFTs.
@@ -649,10 +509,11 @@ class SeparableConvGram2D(LinearOperator):
         A x     = sum_i C(v_i) R(u_i) x
         A^H A x = sum_j R(u_j~) C(v_j~) sum_i C(v_i) R(u_i) x
 
-    Every 1-D pass is a block-Toeplitz banded matmul on the MXU
-    (kernels/band.py) — 4r HBM streams total.  Replaces the FFT Gram
-    (ConvGram2D) whenever the kernel's numerical rank is small; exact to
-    matmul precision (tests/test_gram.py covers every kernel parity).
+    Every 1-D pass is a block-Toeplitz banded matmul (kernels/band.py) —
+    4r passes in general, 2 for rank 1.  ``Convolve2D.gram`` picks it for
+    rank-1 kernels only, where it beats the FFT Gram (ConvGram2D) on an
+    H100 (PERF.md); exact to matmul precision (tests/test_gram.py covers
+    every kernel parity).
     """
 
     row_conv: tuple = None
@@ -671,26 +532,9 @@ class SeparableConvGram2D(LinearOperator):
     rank: int = static_field(default=1)
     leads: tuple = static_field(default=None)  # (row_conv, col_conv, row_corr, col_corr)
     g_meta: tuple = static_field(default=None)  # (lead_r, L_r, lead_c, L_c) or None
-    # raw (2m-1)-tap autocorrelations of the rank-1 factors (host floats);
-    # consumed by the fused gram+stencil mega kernel (kernels/tv.py)
-    g_rows_acorr: tuple = static_field(default=None)
-    g_cols_acorr: tuple = static_field(default=None)
     # channel-conv formulation of the lane-direction Gram band (no pad copy,
-    # MXU work ~ tile instead of 128; kernels/band.py make_chanconv)
+    # matmul work ~ tile instead of 128; kernels/band.py make_chanconv)
     g_cols_chan: jax.Array = None
-    # raw rank-1 factor taps (host floats; mega2 lane-plan builder input)
-    g_rows_taps: tuple = static_field(default=None)
-    g_cols_taps: tuple = static_field(default=None)
-    # fused two-sweep Gram (kernels/conv2d.py): on TPU, A^H A runs as
-    # adjoint-sweep o forward-sweep — 4 clean HBM streams for ANY rank <= 4,
-    # vs the banded path's 4r passes with pad/carry intermediates.  Exact:
-    # the sweeps are exact 'same' convolutions, so their composition needs
-    # none of the crop-edge corrections the autocorrelation band applies.
-    sw_Bf: jax.Array = None
-    sw_Cf: jax.Array = None
-    sw_Ba: jax.Array = None
-    sw_Ca: jax.Array = None
-    sw_r: int = static_field(default=0)
 
     @staticmethod
     def build(conv: "Convolve2D", tol: float = 1e-6, max_rank: int = 4):
@@ -767,33 +611,14 @@ class SeparableConvGram2D(LinearOperator):
             self.g_rows_E = None if Etr is None else (jnp.asarray(Etr), jnp.asarray(Ebr))
             self.g_cols_E = None if Etc is None else (jnp.asarray(Etc), jnp.asarray(Ebc))
             self.g_meta = (lead_r, L_r, lead_c, L_c)
-            self.g_rows_acorr = tuple(float(t) for t in np.convolve(us[:, 0], us[::-1, 0]))
-            self.g_cols_acorr = tuple(float(t) for t in np.convolve(vs[:, 0], vs[::-1, 0]))
-            self.g_rows_taps = tuple(float(t) for t in us[:, 0])
-            self.g_cols_taps = tuple(float(t) for t in vs[:, 0])
             from pycsou_tpu.kernels.band import CHAN_TILE, make_chanconv
 
             self.g_cols_chan = None
             if W % CHAN_TILE == 0:
-                Kc = make_chanconv(np.asarray(self.g_cols_acorr), m1 - 1)
+                # (2m-1)-tap autocorrelation of the rank-1 lane factor
+                Kc = make_chanconv(np.convolve(vs[:, 0], vs[::-1, 0]), m1 - 1)
                 if Kc is not None:
                     self.g_cols_chan = jnp.asarray(Kc)
-
-        # fused two-sweep Gram plans (TPU only; shape/rank-gated).  apply()
-        # prefers them for EVERY rank: measured 0.79 ms vs the rank-1 2-pass
-        # acorr band's 1.43 ms at 4096^2 (the sweeps are single-stream
-        # pallas passes; the banded path pays pad/carry copies).
-        self.sw_Bf = self.sw_Cf = self.sw_Ba = self.sw_Ca = None
-        self.sw_r = 0
-        # 1x1 kernels (identity/homothety, the denoising path): the banded
-        # Gram is a trivial fused scale — two pallas sweeps would be pure
-        # launch overhead
-        if m0 * m1 > 1 and jax.default_backend() not in ("cpu",):
-            from pycsou_tpu.kernels.conv2d import make_sepconv_plan_pair
-
-            pp = make_sepconv_plan_pair(np.asarray(us), np.asarray(vs), conv.dim_shape)
-            if pp is not None:
-                self.sw_Bf, self.sw_Cf, self.sw_Ba, self.sw_Ca, self.sw_r = pp
 
     def _apply_fast2(self, x):
         """Rank-1 2-pass Gram: RowGram then ColGram, each one banded pass."""
@@ -819,35 +644,9 @@ class SeparableConvGram2D(LinearOperator):
             g = g.at[:, -Km1:].add(jnp.matmul(y[:, -L_c:], Eb.T, precision=prec))
         return g
 
-    def grad_fused(self, x, atb):
-        """Least-squares data gradient ``2 (A^H A x - atb)`` in ONE pallas
-        pass, or None when no sweep plan qualifies: the forward sweep, the
-        adjoint sweep (its row band scaled by the exact power-of-two 2x) and
-        the ``- 2 atb`` subtraction pipelined through one grid walk — 3 HBM
-        streams vs the unfused route's 5 (consumed by
-        :class:`pycsou_tpu.func.loss.LeastSquaresLoss`)."""
-        if not self.sw_r:
-            return None
-        from pycsou_tpu.kernels.conv2d import sepgram2d_sweep
-
-        return sepgram2d_sweep(
-            jnp.asarray(x), self.sw_Bf, self.sw_Cf, 2.0 * self.sw_Ba, self.sw_Ca,
-            r=self.sw_r, atb=atb,
-        )
-
     def apply(self, x):
         from pycsou_tpu.kernels.band import band_conv_cols, band_conv_rows
 
-        if self.sw_r:
-            # fused adjoint-sweep o forward-sweep: t = A x stays in VMEM, so
-            # the Gram is 2 HBM streams for any rank <= 4 (the two-call
-            # composition paid 4; the 2-pass acorr band 1.8x more than that)
-            from pycsou_tpu.kernels.conv2d import sepgram2d_sweep
-
-            return sepgram2d_sweep(
-                jnp.asarray(x), self.sw_Bf, self.sw_Cf, self.sw_Ba, self.sw_Ca,
-                r=self.sw_r,
-            )
         if self.g_meta is not None:
             return self._apply_fast2(x)
         from pycsou_tpu.kernels.band import chanconv_cols
@@ -874,13 +673,6 @@ class SeparableConvGram2D(LinearOperator):
 
     def adjoint(self, y):
         return self.apply(jnp.asarray(y))
-
-    def _without_pallas(self) -> "SeparableConvGram2D":
-        """GSPMD-safe twin: drop the two-sweep plans so apply stays on the
-        banded XLA passes (``_module.strip_pallas``)."""
-        if not self.sw_r:
-            return self
-        return self.replace(sw_Bf=None, sw_Cf=None, sw_Ba=None, sw_Ca=None, sw_r=0)
 
 
 def rank1_factors_nd(filt_np: np.ndarray, tol: float = 1e-6):
@@ -912,7 +704,7 @@ def rank1_factors_nd(filt_np: np.ndarray, tol: float = 1e-6):
 
 class SeparableConvGramND(LinearOperator):
     """Exact Gram ``A^H A`` of a 'same' n-D convolution with a RANK-1
-    (fully separable) kernel — ZERO FFTs, one banded MXU pass per axis.
+    (fully separable) kernel — ZERO FFTs, one banded matmul pass per axis.
 
     ``filt = u_0 (x) ... (x) u_{d-1}`` factorises the operator into 1-D
     'same' convolutions per axis, so the Gram is the composition of the
@@ -1024,7 +816,7 @@ class ConvolveND(LinearOperator):
     @property
     def h_hat(self):
         """Frequency-domain transfer function, stored as re/im pairs
-        (complex d2h is unimplemented on some TPU runtimes)."""
+        (split real pairs keep closure-jit usable)."""
         return jax.lax.complex(self.h_hat_re, self.h_hat_im)
 
     def apply(self, x):
@@ -1038,7 +830,7 @@ class ConvolveND(LinearOperator):
     @property
     def gram(self):
         """Fused exact n-D Gram.  Rank-1 (separable) kernels take the
-        zero-FFT banded path (``SeparableConvGramND``, one MXU pass per
+        zero-FFT banded path (``SeparableConvGramND``, one matmul pass per
         axis); everything else gets one rfftn roundtrip + thin slab
         corrections (ops/_gram.py ``convnd_gram_apply``)."""
         g = SeparableConvGramND.build(self)
@@ -1102,8 +894,7 @@ class CircularConvolve(LinearOperator):
             h_hat = jnp.fft.rfftn(hfull, axes=tuple(range(len(dim_shape))))
         h_hat = jnp.asarray(h_hat)
         re, im = jnp.real(h_hat), jnp.imag(h_hat)
-        # d2h of the re/im PARTS only: complex d2h is unimplemented on some
-        # TPU runtimes (the reason h_hat is stored split in the first place)
+        # host copies of the re/im parts (h_hat is stored split)
         lip = float(np.max(np.hypot(np.asarray(re), np.asarray(im))))
         super().__init__(dim_shape, dim_shape, lipschitz=lip, dtype=dtype)
         self.h_hat_re = re
@@ -1112,7 +903,7 @@ class CircularConvolve(LinearOperator):
     @property
     def h_hat(self):
         """Frequency-domain transfer function, stored as re/im pairs
-        (complex d2h is unimplemented on some TPU runtimes)."""
+        (split real pairs keep closure-jit usable)."""
         return jax.lax.complex(self.h_hat_re, self.h_hat_im)
 
     def _axes(self):

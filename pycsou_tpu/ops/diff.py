@@ -1,10 +1,10 @@
 """Finite-difference stencil operators: derivatives, gradient, Laplacian,
 directional and generalised variants, causal integration.
 
-TPU-native equivalent of /root/reference/pycsou/linop/diff.py (1,141 LoC,
+Equivalent of the reference's pycsou/linop/diff.py (1,141 LoC,
 which wraps pylops stencils).  Stencils are expressed as sliced vector ops
-that XLA fuses into VPU code (a Pallas kernel path exists for the fused TV
-gradient, see pycsou_tpu.kernels); adjoints are hand-derived (divergence
+that XLA fuses into its surrounding elementwise passes (the fused TV step
+is pycsou_tpu.kernels.tv); adjoints are hand-derived (divergence
 forms) and dot-test verified.  Exact spectral bounds are set in closed form
 instead of the reference's ARPACK estimation.
 """
@@ -239,7 +239,7 @@ class Gradient(LinearOperator):
     """Stacked first-order differences along every axis:
     ``(d, *dim_shape)`` output — the isotropic-TV workhorse
     (reference diff.py:777-882).  Hand-fused apply/adjoint (negative
-    divergence); XLA maps the slices onto the VPU.
+    divergence); XLA fuses the slices into elementwise passes.
 
     Example::
 

@@ -1,11 +1,11 @@
 """Kronecker-structured operators: matrix-free Kronecker product/sum and
 Khatri-Rao product.
 
-TPU-native equivalent of /root/reference/pycsou/linop/base.py:715-989.
+Equivalent of the reference's pycsou/linop/base.py:715-989.
 The vec-trick contractions ``(A kron B) vec(X) = vec(A X B^T)`` are expressed
 with ``jax.vmap`` over the factor operators, so the factors may themselves be
 matrix-free operators (the reference requires explicit pylops wrappers) and
-the contraction maps onto batched MXU matmuls for dense factors.
+the contraction maps onto batched matmuls for dense factors.
 
 Convention: row-major (C-order) vec, matching ``np.kron``:
 ``(A kron B) x == (A @ X @ B.T).ravel()`` for ``X = x.reshape(nA, nB)``.

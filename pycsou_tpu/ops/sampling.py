@@ -1,7 +1,7 @@
 """Sampling operators: subsampling, masking, downsampling, pooling, off-grid
 nearest-neighbour sampling, generalised Vandermonde, mapped distance matrices.
 
-TPU-native equivalent of /root/reference/pycsou/linop/sampling.py (1,062 LoC).
+Equivalent of the reference's pycsou/linop/sampling.py (1,062 LoC).
 Gather/scatter index sets are precomputed on host (static), applies are
 ``jnp.take`` / ``.at[].add`` scatters, and collision-averaging adjoints use
 ``segment_sum`` instead of the reference's pandas groupby (sampling.py:680-687).
@@ -304,7 +304,7 @@ class MappedDistanceMatrix(LinearOperator):
       KD-tree ball query finds the <= k_max in-support neighbours per row
       once, the device applies them as a padded gather + masked contraction
       (adjoint: ``segment_sum`` scatter).  O(m * k_max) work and memory per
-      matvec instead of O(m n) — the TPU redesign of the reference's
+      matvec instead of O(m n) — the on-device redesign of the reference's
       scipy-sparse ball-query backend (sampling.py:975-1019).  Requires
       ``support=`` (or a ``function.support`` attribute, e.g.
       :class:`pycsou_tpu.math.green.Wendland`);

@@ -1,11 +1,11 @@
 """Operator stacking: vertical/horizontal stacks, block and block-diagonal
 operators.
 
-TPU-native equivalent of /root/reference/pycsou/core/map.py:613-1001 and
+Equivalent of the reference's pycsou/core/map.py:613-1001 and
 /root/reference/pycsou/linop/base.py:159-548.  The reference fans stacked
 blocks out to joblib worker processes (map.py:720-740, base.py:272-292);
 here every block's apply/adjoint traces into ONE XLA computation (compiler
-parallelism on a single chip) and the mesh-sharded variants live in
+parallelism on a single device) and the mesh-sharded variants live in
 ``pycsou_tpu.parallel`` (fan-in = psum over devices, SURVEY §2.6).
 
 Stacked outputs use the natural nd layout when all blocks agree —

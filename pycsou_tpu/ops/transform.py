@@ -12,7 +12,6 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
-import jax
 import jax.numpy as jnp
 import jax.scipy.fft as jfft
 import numpy as np
@@ -24,78 +23,14 @@ from pycsou_tpu.utils.shapes import as_shape
 __all__ = ["FFTOperator", "DCTOperator", "IDCTOperator"]
 
 
-def _dct2_1d_fft(x, axis: int):
-    """Orthonormal DCT-II along ``axis`` built from a length-2N real FFT
-    (mirror embedding: ``rfft([x, reversed(x)])_k = e^{i pi k/(2N)} 2 t_k``
-    with ``t`` the unnormalised DCT-II) — the TPU path.
-    ``jax.scipy.fft.dctn`` lowers to a primitive this runtime's TPU
-    compiler rejects (UNIMPLEMENTED, and the failure poisons every
-    subsequent dispatch of the process), while the FFT primitives are
-    first-class on TPU."""
-    N = x.shape[axis]
-    x = jnp.moveaxis(x, axis, -1)
-    u = jnp.concatenate([x, x[..., ::-1]], axis=-1)
-    U = jnp.fft.rfft(u)[..., :N]
-    k = np.arange(N)
-    # 0.5 * Re(e^{-i pi k/(2N)} U_k), with the ortho scales folded in
-    cscale = np.concatenate(
-        [[1.0 / np.sqrt(N)], np.full(N - 1, np.sqrt(2.0 / N))]
-    )
-    w_re = jnp.asarray(0.5 * cscale * np.cos(np.pi * k / (2 * N)), jnp.float32)
-    w_im = jnp.asarray(0.5 * cscale * np.sin(np.pi * k / (2 * N)), jnp.float32)
-    t = jnp.real(U) * w_re + jnp.imag(U) * w_im
-    return jnp.moveaxis(t.astype(x.dtype), -1, axis)
-
-
 def _dctn_ortho(x, axes: Optional[Tuple[int, ...]]):
-    """Orthonormal DCT-II over ``axes`` (all axes when None): scipy path on
-    CPU, FFT-composed path on TPU (see :func:`_dct2_1d_fft`)."""
-    if jax.default_backend() == "cpu":
-        return jfft.dctn(x, type=2, axes=axes, norm="ortho")
-    for ax in axes if axes is not None else range(x.ndim):
-        x = _dct2_1d_fft(x, ax)
-    return x
-
-
-def _dct3_1d_fft(y, axis: int):
-    """Orthonormal DCT-III (the inverse of :func:`_dct2_1d_fft`) along
-    ``axis`` via a length-2N inverse REAL FFT: with ``c_0 = y_0/sqrt(N)``,
-    ``c_k = sqrt(2/N) y_k`` the target ``x_n = Re(sum_{k<N} conj(c_k
-    e^{-i pi k/(2N)}) e^{+2 pi i k n/(2N)})`` is exactly an ``irfft`` of the
-    half-spectrum ``S_0 = 2N c_0, S_k = N conj(c_k e^{-i pi k/(2N)}),
-    S_N = 0``.  Only rfft/irfft primitives are used — this runtime's TPU
-    compiler rejects both the complex-input FFT and the rfft-transpose that
-    ``jax.linear_transpose`` would emit."""
-    N = y.shape[axis]
-    y = jnp.moveaxis(y, axis, -1)
-    # S_k = N * conj(c_k * e^{-i pi k/(2N)}) for k >= 1; S_0 = 2N c_0 —
-    # the weights ship as REAL hi/lo pairs and the complex spectrum is
-    # assembled ON-device (lax.complex): complex host->device transfers are
-    # unimplemented on this runtime (see ops/conv.py transfer functions)
-    k = np.arange(N)
-    phase = np.exp(+1j * np.pi * k / (2 * N))  # conj of the twist
-    cscale = np.concatenate(
-        [[1.0 / np.sqrt(N)], np.full(N - 1, np.sqrt(2.0 / N))]
-    )
-    wk = N * cscale * phase
-    wk[0] = 2.0 * N * cscale[0]
-    w_re = jnp.asarray(np.real(wk), jnp.float32)
-    w_im = jnp.asarray(np.imag(wk), jnp.float32)
-    zpad = jnp.zeros(y.shape[:-1] + (1,), jnp.float32)
-    S_re = jnp.concatenate([y * w_re, zpad], axis=-1)
-    S_im = jnp.concatenate([y * w_im, zpad], axis=-1)
-    x = jnp.fft.irfft(jax.lax.complex(S_re, S_im), n=2 * N)[..., :N]
-    return jnp.moveaxis(x.astype(y.dtype), -1, axis)
+    """Orthonormal DCT-II over ``axes`` (all axes when None)."""
+    return jfft.dctn(x, type=2, axes=axes, norm="ortho")
 
 
 def _idctn_ortho(y, axes: Optional[Tuple[int, ...]]):
-    """Orthonormal inverse DCT (DCT-III): scipy path on CPU, FFT-composed
-    path on TPU (see :func:`_dct3_1d_fft`)."""
-    if jax.default_backend() == "cpu":
-        return jfft.idctn(y, type=2, axes=axes, norm="ortho")
-    for ax in axes if axes is not None else range(y.ndim):
-        y = _dct3_1d_fft(y, ax)
-    return y
+    """Orthonormal inverse DCT (DCT-III) over ``axes``."""
+    return jfft.idctn(y, type=2, axes=axes, norm="ortho")
 
 
 class FFTOperator(UnitaryMixin, LinearOperator):

@@ -21,7 +21,7 @@ A first-class :class:`~pycsou_tpu.core.solver.IterativeSolver` (task 3):
 stopping metric on the consensus variable ``z``, on-device history,
 checkpoint/resume and ``SolveInfo`` all apply; the whole iteration is FFTs/
 CG + elementwise work + ONE psum over the data-parallel mesh axis — the
-TPU-native replacement for the reference's absent distributed story
+replacement for the reference's absent distributed story
 (SURVEY §2.6).  The reference has no ADMM solver; the mathematics follows
 Boyd et al., "Distributed Optimization and Statistical Learning via ADMM" §7.
 """
@@ -47,7 +47,7 @@ __all__ = ["ConsensusADMM", "stack_operators"]
 def stack_operators(ops):
     """Stack same-family operators into ONE pytree whose array leaves carry
     a leading scenario axis — the vmappable/shardable form ``ConsensusADMM``
-    consumes (the TPU equivalent of the reference's joblib block fan-out,
+    consumes (the on-device equivalent of the reference's joblib block fan-out,
     SURVEY §2.6)."""
     if len(ops) == 0:
         raise ValueError("need at least one operator")
@@ -140,9 +140,8 @@ class ConsensusADMM(IterativeSolver):
         spec_s = NamedSharding(self.mesh, PartitionSpec(self.axis_name, *([None] * (data.ndim - 1))))
         self.data = jax.device_put(data, spec_s)
         if h_hats is not None:
-            # split re/im ON HOST: complex host->device transfers are
-            # unimplemented on this TPU runtime (like complex d2h — see
-            # ops/conv.py transfer functions)
+            # split re/im ON HOST (the ops/conv.py transfer-function
+            # convention)
             h_np = np.asarray(h_hats)
             sh = NamedSharding(self.mesh, PartitionSpec(self.axis_name, *([None] * (h_np.ndim - 1))))
             self._h_re = jax.device_put(jnp.asarray(np.real(h_np), jnp.float32), sh)

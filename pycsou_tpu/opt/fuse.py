@@ -1,13 +1,12 @@
 """Expression recognition: rewrite generic solver configurations onto the
-fused Pallas engines.
+fused solvers.
 
 The reference's product is duck-typed solver/operator composition — users
 write ``PDS(F=SquaredL2Loss * Convolve2D, H=lam * L21Norm, K=Gradient, ...)``
 (/root/reference/pycsou/opt/proxalgs.py:343-355) and the solver runs whatever
-expression tree it is handed.  On TPU the same mathematics has a hand-fused
-realisation (``opt.tv.TVDeconvolution``: kernel-resident Grams, one Pallas
-pass per iteration, epilogue metric partial sums) that is ~6x faster than
-stepping the expression tree through XLA.
+expression tree it is handed.  The same mathematics has a hand-fused
+realisation (``opt.tv.TVDeconvolution``: the data gradient through one
+fused convolution Gram, the stencil/prox/momentum chain as one XLA fusion).
 
 This module is the bridge: a *pattern matcher* over the (F, G, H, K)
 expression tree that recognises configurations with a fused realisation and
@@ -409,7 +408,7 @@ def explain_tv_mismatch(dim_shape, F, G, H, K) -> Optional[str]:
     matches the TV pattern (at least half the expression slots match), or
     None when the configuration isn't close.  Logged by PDS at construction
     so a user one default away from the fused engine learns which knob to
-    turn (the round-3 matcher failed silently — a 4.9x cliff)."""
+    turn instead of silently running the slower generic chain."""
     dim_shape = tuple(dim_shape)
     if len(dim_shape) != 2:
         return None
@@ -427,8 +426,7 @@ def explain_tv_mismatch(dim_shape, F, G, H, K) -> Optional[str]:
     if not reasons or len(reasons) > 2:  # not close: most slots differ
         return None
     return (
-        "PDS expression NOT fused (runs the generic chain, ~5x slower on "
-        "TV-shaped problems): " + "; ".join(reasons)
+        "PDS expression NOT fused (runs the generic chain): " + "; ".join(reasons)
     )
 
 

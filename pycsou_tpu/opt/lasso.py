@@ -1,18 +1,13 @@
-"""Fused LASSO / sparse-deconvolution solver (FISTA with the Gram +
-prox + momentum fused into one Pallas pass).
+"""LASSO / sparse-deconvolution solver (FISTA through the fused Gram).
 
 The reference's APGD on ``min ||A x - y||^2 + lam ||x||_1``
 (/root/reference/pycsou/opt/proxalgs.py:400-625, conv data term
 linop/conv.py:167-295) is its second flagship configuration (BASELINE
 config 1).  ``LassoDeconvolution`` computes exactly the APGD iterates —
-same BT/CD momentum rules, same auto ``tau = 1/beta`` — but the hot path
-runs :func:`pycsou_tpu.kernels.fista.lasso_fista_step`: one kernel per
-iteration (5 HBM streams) with the stopping-metric partial sums riding the
-epilogue, the FISTA sibling of the fused TV engines (opt/tv.py).
-
-Engine ladder: ``megaf`` (fused Pallas; rank <= 4 PSF, sweep-eligible
-shape) > ``gram`` (XLA chain routing the gradient through the operator's
-fused Gram — the CPU / ineligible-shape path).
+same BT/CD momentum rules, same auto ``tau = 1/beta`` — with the gradient
+routed through the operator's fused Gram (one Gram apply per iteration
+instead of a forward and an adjoint convolution); the soft-threshold and
+momentum chain is elementwise and XLA fuses it.
 """
 from __future__ import annotations
 
@@ -54,9 +49,6 @@ class LassoDeconvolution(IterativeSolver):
         True
     """
 
-    # engines whose kernel emits the stopping-metric partial sums
-    _STATS_ENGINES = ("megaf",)
-
     y: jax.Array = None
     gram: object = None
     atb: jax.Array = None
@@ -66,15 +58,6 @@ class LassoDeconvolution(IterativeSolver):
     nonneg: bool = static_field(default=False)
     acceleration: Optional[str] = static_field(default="CD")
     d: float = static_field(default=75.0)
-    engine: str = static_field(default="gram")
-    mega_r: int = static_field(default=32)
-    # interpret-mode pallas (CPU-mesh tests; the DistributedTVDeconv2D flag)
-    interpret: bool = static_field(default=False)
-    # fused-kernel plans (kernels/fista.py make_fista_plan)
-    mf_Bf: jax.Array = None
-    mf_Cf: jax.Array = None
-    mf_Ba: jax.Array = None
-    mf_Ca: jax.Array = None
 
     def __init__(
         self,
@@ -86,7 +69,6 @@ class LassoDeconvolution(IterativeSolver):
         tau: Optional[float] = None,
         acceleration: Optional[str] = "CD",
         d: float = 75.0,
-        use_pallas: str = "auto",
         max_iter: int = 500,
         min_iter: int = 10,
         accuracy_threshold: float = 1e-4,
@@ -113,49 +95,14 @@ class LassoDeconvolution(IterativeSolver):
         # stopping metric on the feasible iterate (reference proxalgs.py:612)
         self.primary_var = "x_temp"
 
-        self.interpret = use_pallas == "interpret"
-        if use_pallas == "auto":
-            from pycsou_tpu.kernels.tv import pallas_available
-
-            use_pallas = (
-                jax.default_backend() not in ("cpu",)
-                and shape[0] % 8 == 0
-                and pallas_available()
-            )
-        self.mf_Bf = self.mf_Cf = self.mf_Ba = self.mf_Ca = None
-        self.mega_r = 32
-        self.engine = "gram"
-        if use_pallas:
-            fac = Convolve2D._band_factors(jnp.asarray(filt, jnp.float32))
-            if fac is not None:
-                from pycsou_tpu.kernels.fista import make_fista_plan
-
-                plan = make_fista_plan(fac[0], fac[1], shape)
-                if plan is not None:
-                    (self.mf_Bf, self.mf_Cf, self.mf_Ba, self.mf_Ca,
-                     self.mega_r) = plan
-                    self.engine = "megaf"
-
-    def _without_pallas(self) -> "LassoDeconvolution":
-        """GSPMD-safe twin (``_module.strip_pallas``): the gram-chain engine
-        partitions fine; the fused kernel does not."""
-        if self.engine != "megaf":
-            return self
-        return self.replace(
-            engine="gram", mf_Bf=None, mf_Cf=None, mf_Ba=None, mf_Ca=None
-        )
-
     # -- iteration -----------------------------------------------------------
     def initial_state(self):
-        state = {
+        return {
             "x": jnp.zeros(self.y.shape, jnp.float32),
             "x_temp": jnp.zeros(self.y.shape, jnp.float32),
             "t": jnp.asarray(1.0, jnp.float32),
             "n": jnp.asarray(0, jnp.int32),
         }
-        if self.engine in self._STATS_ENGINES:
-            state["_stats"] = jnp.zeros((6,), jnp.float32)
-        return state
 
     def _momentum(self, t_old, n):
         if self.acceleration == "BT":
@@ -170,16 +117,6 @@ class LassoDeconvolution(IterativeSolver):
     def step(self, state):
         v, xp, t_old, n = state["x"], state["x_temp"], state["t"], state["n"]
         a, t = self._momentum(t_old, n)
-        if self.engine == "megaf":
-            from pycsou_tpu.kernels.fista import lasso_fista_step
-
-            x_n, v_n, stats = lasso_fista_step(
-                v, xp, self.atb, self.mf_Bf, self.mf_Cf, self.mf_Ba, self.mf_Ca,
-                jnp.reshape(a, (1,)).astype(jnp.float32),
-                tau=self.tau, lam=self.lam, nonneg=self.nonneg,
-                mega_r=self.mega_r, interpret=self.interpret,
-            )
-            return {"x": v_n, "x_temp": x_n, "t": t, "n": n + 1, "_stats": stats[0, :6]}
         g = 2.0 * (self.gram.apply(v) - self.atb)
         u = v - self.tau * g
         thr = self.tau * self.lam
@@ -195,23 +132,3 @@ class LassoDeconvolution(IterativeSolver):
         ``||Ax - y||^2 = <x, Gx> - 2 <x, atb> + ||y||^2`` (pure/jittable)."""
         quad = jnp.vdot(x, self.gram.apply(x)) - 2.0 * jnp.vdot(x, self.atb) + jnp.vdot(self.y, self.y)
         return jnp.real(quad) + self.lam * jnp.sum(jnp.abs(x))
-
-    # -- kernel-epilogue metrics ----------------------------------------------
-    def metric(self, old, new):
-        if self.engine in self._STATS_ENGINES and "_stats" in new:
-            from pycsou_tpu.opt.tv import TVDeconvolution
-
-            st = new["_stats"]
-            return TVDeconvolution._rel_from_stats(st[0], st[1])
-        return super().metric(old, new)
-
-    def metrics(self, old, new):
-        if self.engine in self._STATS_ENGINES and "_stats" in new:
-            from pycsou_tpu.opt.tv import TVDeconvolution
-
-            st = new["_stats"]
-            return {
-                "x": TVDeconvolution._rel_from_stats(st[2], st[3]),
-                "x_temp": TVDeconvolution._rel_from_stats(st[0], st[1]),
-            }
-        return super().metrics(old, new)

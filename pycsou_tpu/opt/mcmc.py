@@ -1,7 +1,7 @@
 """Proximal MCMC: the PMYULA (Proximal Moreau-Yosida Unadjusted Langevin
 Algorithm) sampler for Bayesian inverse problems.
 
-TPU-native re-design of /root/reference/pycsou/opt/mcmc.py:14-208: the
+Re-design of the reference's pycsou/opt/mcmc.py:14-208: the
 Langevin chain, burn-in/thinning gates, online moment accumulators and the
 per-tracked-operator P^2 quantile states all live in ONE jitted loop state —
 no per-sample host work (the reference appends to Python lists and loops over
@@ -68,18 +68,6 @@ class PMYULA(IterativeSolver):
     thinning: int = static_field(default=1)
     seed: int = static_field(default=0)
     _G_null: bool = static_field(default=False)
-    # fused TPU sampling engine (kernels/langevin.py): "megal" = whole
-    # Langevin step (both Gram directions + prox + in-kernel Mosaic PRNG
-    # noise + MMSE/m2 accumulators) in ONE pass; "" = generic XLA chain
-    engine: str = static_field(default="")
-    _prox_mode: str = static_field(default="none")
-    _lam_l1: float = static_field(default=0.0)
-    _lg_B: jax.Array = None
-    _lg_C: jax.Array = None
-    _lg_F: jax.Array = None
-    _lg_Et: jax.Array = None
-    _lg_Eb: jax.Array = None
-    _lg_atb: jax.Array = None
 
     def __init__(
         self,
@@ -100,7 +88,6 @@ class PMYULA(IterativeSolver):
         min_iter: int = 100,
         accuracy_threshold: float = 1e-4,
         verbose: Optional[int] = None,
-        use_pallas: str = "auto",
     ):
         super().__init__(max_iter=max_iter, min_iter=min_iter, tol=accuracy_threshold, verbose=verbose)
         dim_shape = as_shape(dim_shape)
@@ -145,72 +132,6 @@ class PMYULA(IterativeSolver):
         self.seed = int(seed)
         self.x0 = jnp.zeros(dim_shape, dtype=jnp.float32) if x0 is None else jnp.asarray(x0)
 
-        # -- fused TPU engine detection (VERDICT r4 task 5): the Langevin
-        # step of the deconvolution posterior touches the same arrays as the
-        # TV chain with no dual, so the mega2/mega3 Gram machinery + Mosaic
-        # in-kernel PRNG fuses the WHOLE sample into one 7-stream pass
-        self.engine = ""
-        self._prox_mode, self._lam_l1 = "none", 0.0
-        self._lg_B = self._lg_C = self._lg_F = None
-        self._lg_Et = self._lg_Eb = self._lg_atb = None
-        if (
-            use_pallas in ("auto", "interpret", True)
-            and not (self.linops or self.pvalues or self.scalar_fns)
-            and (use_pallas == "interpret" or jax.default_backend() not in ("cpu",))
-        ):
-            try:
-                self._try_fused_engine(dim_shape, F, G, interpret=use_pallas == "interpret")
-            except Exception:  # never let the fast path break the sampler
-                self.engine = ""
-
-    def _try_fused_engine(self, dim_shape, F, G, interpret: bool = False):
-        from pycsou_tpu.opt.fuse import _match_conv_least_squares, _why_G_l1, _why_G_nonneg
-        from pycsou_tpu.opt.tv import mega3_plans
-        from pycsou_tpu.ops.conv import Convolve2D
-
-        if len(dim_shape) != 2:
-            return
-        fy = _match_conv_least_squares(dim_shape, F) if F is not None else None
-        if fy is None:
-            return
-        filt, y = fy
-        if G is None:
-            prox_mode, lam = "none", 0.0
-        else:
-            nn, nn_reason = _why_G_nonneg(G)
-            if nn_reason is None and nn:
-                prox_mode, lam = "nonneg", 0.0
-            else:
-                lam_l1, l1_reason = _why_G_l1(G, dim_shape)
-                if l1_reason is not None:
-                    return
-                prox_mode, lam = "l1", lam_l1
-        import numpy as np
-
-        if filt is None:
-            filt = np.ones((1, 1), np.float32)
-        A = Convolve2D(dim_shape, filt)
-        # single source of the mega3-class engine gates + plan construction
-        # (opt/tv.py mega3_plans — shared with TVDeconvolution)
-        plans = mega3_plans(A.gram, dim_shape)
-        if plans is None:
-            return
-        self._lg_B, self._lg_C, self._lg_F, self._lg_Et, self._lg_Eb = plans
-        self._lg_atb = A.adjoint(jnp.asarray(y, jnp.float32))
-        self._prox_mode, self._lam_l1 = prox_mode, float(lam)
-        self.engine = "megal-interpret" if interpret else "megal"
-
-    def _without_pallas(self) -> "PMYULA":
-        """GSPMD-safe twin (``_module.strip_pallas``): the fused Langevin
-        kernel does not partition under sharding constraints; the generic
-        chain (explicit jax.random noise + XLA Gram) does."""
-        if not self.engine:
-            return self
-        return self.replace(
-            engine="", _lg_B=None, _lg_C=None, _lg_F=None,
-            _lg_Et=None, _lg_Eb=None, _lg_atb=None,
-        )
-
     # -- state -------------------------------------------------------------
     def initial_state(self):
         state = {
@@ -232,56 +153,7 @@ class PMYULA(IterativeSolver):
             state["traces"] = jnp.zeros((len(self.scalar_fns), self.max_iter), jnp.float32)
         return state
 
-    def _step_megal(self, state):
-        """One fused sample (kernels/langevin.py): Gram + prox blend +
-        in-kernel noise + accumulators in one pass.  The chain key is still
-        split (state layout parity); the kernel's noise streams key off
-        ``(seed, n, tile)`` Mosaic PRNG seeding instead."""
-        from pycsou_tpu.kernels.langevin import pmyula_mega_step
-
-        x, key = state["x"], state["key"]
-        key, sub = jax.random.split(key)
-        it = state["n"]
-        collect = jnp.logical_and(
-            it > jnp.maximum(self.burnin, 4), (it - self.burnin) % self.thinning == 0
-        )
-        w = collect.astype(jnp.float32)
-        si = jnp.stack(
-            [jnp.asarray(self.seed, jnp.int32), it.astype(jnp.int32)]
-        )
-        kw = dict(
-            gamma=self.gamma, tau=self.tau, lam=self._lam_l1,
-            prox_mode=self._prox_mode, mega_r=32,
-        )
-        if self.engine == "megal-interpret":
-            xi = jax.random.normal(sub, x.shape, dtype=x.dtype)
-            xn, m1, m2 = pmyula_mega_step(
-                x, self._lg_atb, state["mmse_raw"], state["m2_raw"], si, w[None],
-                self._lg_B, self._lg_C, self._lg_F, self._lg_Et, self._lg_Eb,
-                noise_mode="stream", noise=xi, interpret=True, **kw,
-            )
-        else:
-            xn, m1, m2 = pmyula_mega_step(
-                x, self._lg_atb, state["mmse_raw"], state["m2_raw"], si, w[None],
-                self._lg_B, self._lg_C, self._lg_F, self._lg_Et, self._lg_Eb,
-                noise_mode="prng", **kw,
-            )
-        return {
-            "x": xn,
-            "key": key,
-            "n": it + 1,
-            "count": state["count"] + collect.astype(jnp.int32),
-            "mmse_raw": m1,
-            "m2_raw": m2,
-            "p2_raw": state["p2_raw"],
-            "mmse_ops": state["mmse_ops"],
-            "m2_ops": state["m2_ops"],
-            "p2_ops": state["p2_ops"],
-        }
-
     def step(self, state):
-        if self.engine:
-            return self._step_megal(state)
         x, key = state["x"], state["key"]
         key, sub = jax.random.split(key)
         xi = jax.random.normal(sub, x.shape, dtype=x.dtype)

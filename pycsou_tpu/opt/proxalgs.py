@@ -1,7 +1,7 @@
 """Proximal splitting solvers: Condat-Vu primal-dual, FISTA, Chambolle-Pock,
 Douglas-Rachford, forward-backward.
 
-TPU-native re-design of /root/reference/pycsou/opt/proxalgs.py (1,139 LoC):
+Re-design of the reference's pycsou/opt/proxalgs.py (1,139 LoC):
 identical mathematics — update rules, auto-tuned step sizes from Lipschitz
 constants (proxalgs.py:246-316, 564-601), default Null/Identity operators —
 but each iteration is one fused XLA computation driven by ``lax.while_loop``
@@ -69,7 +69,7 @@ class PrimalDualSplitting(IterativeSolver):
     ``fuse=True`` (default) pattern-matches the (F, G, H, K) expression tree
     at construction (opt/fuse.py) and, when a hand-fused realisation exists
     (currently: 2-D TV deconvolution/denoising), delegates the iteration to
-    it — same iterates, ~6x throughput on the flagship problem.  Pass
+    it — same iterates through the fused convolution Gram.  Pass
     ``fuse=False`` to always step the expression tree generically.
 
     Example — LASSO ``min ||Ax - y||^2 + 0.1 ||x||_1``::
@@ -110,8 +110,7 @@ class PrimalDualSplitting(IterativeSolver):
     # compute the stopping/diagnostic partial sums INSIDE step() on the same
     # operands the momentum pass reads (metric_every=1 only): XLA multi-
     # output-fuses the reductions with the update, where the separate
-    # old-vs-new state reductions cost full extra HBM passes (the r3 trace
-    # put them at 31% of the generic chain's iteration time)
+    # old-vs-new state reductions cost full extra HBM passes
     _instats: bool = static_field(default=False)
 
     def __init__(
@@ -196,39 +195,27 @@ class PrimalDualSplitting(IterativeSolver):
         # -- expression recognition (opt/fuse.py): when the (F, G, H, K)
         # tree matches a pattern with a hand-fused realisation, delegate
         # step/metric to the specialised solver — same Condat-Vu iterates
-        # (tests/test_fuse.py), ~6x throughput on the flagship problem.
-        # ``fuse=False`` opts out (e.g. to benchmark the generic chain).
+        # (tests/test_fuse.py).  ``fuse=False`` opts out (e.g. to benchmark
+        # the generic chain).  A matcher returns None on a mismatch; an
+        # error inside one is a bug and propagates.
         self._instats = int(metric_every) == 1
         self._fused = None
         if fuse and self._has_H:
-            from pycsou_tpu.opt.fuse import match_tv_deconvolution
+            from pycsou_tpu.opt.fuse import match_cps_tv_denoise, match_tv_deconvolution
 
-            try:
-                self._fused = match_tv_deconvolution(
-                    dim_shape, self.F, self.G, self.H, self.K,
-                    self.tau, self.sigma, self.rho, metric_every=metric_every,
-                )
-            except Exception as e:  # never let the fast path break the solve
-                import warnings
-
-                warnings.warn(f"expression fusion failed, running generic: {e!r}")
-                self._fused = None
+            self._fused = match_tv_deconvolution(
+                dim_shape, self.F, self.G, self.H, self.K,
+                self.tau, self.sigma, self.rho, metric_every=metric_every,
+            )
             if self._fused is None:
                 # Chambolle-Pock TV denoising (F absent, the data term a
                 # PROX in G): algebraically a gradient step with
-                # tau' = tau/(1+2tau) — same fused engines (opt/fuse.py)
-                from pycsou_tpu.opt.fuse import match_cps_tv_denoise
-
-                try:
-                    self._fused = match_cps_tv_denoise(
-                        dim_shape, self.F, self.G, self.H, self.K,
-                        self.tau, self.sigma, self.rho, metric_every=metric_every,
-                    )
-                except Exception:
-                    self._fused = None
-            if self._fused is not None:
-                self.iters_per_step = self._fused.iters_per_step
-            else:
+                # tau' = tau/(1+2tau) — same fused solver (opt/fuse.py)
+                self._fused = match_cps_tv_denoise(
+                    dim_shape, self.F, self.G, self.H, self.K,
+                    self.tau, self.sigma, self.rho, metric_every=metric_every,
+                )
+            if self._fused is None:
                 # near-miss note: a user one default away from the fused
                 # engine should learn which knob to turn (opt/fuse.py)
                 from pycsou_tpu.opt.fuse import explain_tv_mismatch, logger as _flog
@@ -236,29 +223,23 @@ class PrimalDualSplitting(IterativeSolver):
                 note = explain_tv_mismatch(dim_shape, self.F, self.G, self.H, self.K)
                 if note:
                     # WARNING level: the whole point of the note is that a
-                    # user one default away from the fused engine LEARNS it
-                    # (a 4.9x cliff); info-level records are dropped by the
-                    # default unconfigured-logging setup
+                    # user one default away from the fused engine LEARNS it;
+                    # info-level records are dropped by the default
+                    # unconfigured-logging setup
                     _flog.warning(note)
         elif fuse and not self._has_H and F is not None and G is not None:
             # FBS / ISTA: PDS with H = None is proximal gradient (reference
             # proxalgs.py:784-862), which at rho = 1 is exactly FISTA with
             # zero momentum — route through the LASSO matcher onto the fused
-            # FISTA engine (acceleration=None => a = 0, identical iterates).
+            # FISTA solver (acceleration=None => a = 0, identical iterates).
             # The rho != 1 relaxation blends with the PREVIOUS x, which the
-            # fused kernel's (x_temp - x_temp_old) momentum cannot express.
+            # fused (x_temp - x_temp_old) momentum cannot express.
             from pycsou_tpu.opt.fuse import match_lasso, logger as _flog
 
-            try:
-                fused = match_lasso(
-                    dim_shape, self.F, self.G, self.tau, None, 75.0,
-                    metric_every=metric_every,
-                )
-            except Exception as e:  # never let the fast path break the solve
-                import warnings
-
-                warnings.warn(f"expression fusion failed, running generic: {e!r}")
-                fused = None
+            fused = match_lasso(
+                dim_shape, self.F, self.G, self.tau, None, 75.0,
+                metric_every=metric_every,
+            )
             if fused is not None and self.rho != 1.0:
                 _flog.warning(
                     "FBS/ISTA expression matches the fused FISTA engine but "
@@ -290,17 +271,13 @@ class PrimalDualSplitting(IterativeSolver):
     # -- iteration ---------------------------------------------------------
     def initial_state(self):
         if self._fused is not None:
-            # the fused engine's state layout (split duals z0/z1: stacking a
-            # (2, H, W) dual around the Pallas kernels costs ~0.4 ms/iter of
-            # hidden copies), seeded with this solver's warm starts.  A
+            # the fused solver's state layout (split duals z0/z1 instead of a
+            # stacked (2, H, W) dual), seeded with this solver's warm starts.  A
             # FBS-routed FISTA delegate has no dual at all.  Seeds are
             # device_put onto the delegate's own shardings — the distributed
             # delegates (with_shardings re-dispatch) keep mesh-sharded state
             def _seed(tmpl, val):
-                try:
-                    return jax.device_put(val, tmpl.sharding)
-                except Exception:
-                    return val
+                return jax.device_put(val, tmpl.sharding)
 
             state = self._fused.initial_state()
             state["x"] = _seed(state["x"], self.x0)
@@ -337,7 +314,7 @@ class PrimalDualSplitting(IterativeSolver):
             # which would read the momentum OUTPUT): sibling fusions with
             # identical operands, which XLA's multi-output fusion merges into
             # the update pass — the separate old-vs-new state reductions cost
-            # full extra HBM passes (31% of the r3 generic chain)
+            # full extra HBM passes
             def _ss(a):
                 return jnp.real(jnp.vdot(a, a)).astype(jnp.float32)
 
@@ -348,7 +325,7 @@ class PrimalDualSplitting(IterativeSolver):
             )
         return out
 
-    # -- fused-path plumbing (kernel-epilogue metrics, state layout) ---------
+    # -- fused-path plumbing (in-step metric sums, state layout) -------------
     def _wrap_state(self, state):
         # checkpoints written before the in-step-stats change (and hand-built
         # states passed to run_fixed) lack the ``_gstats`` entry; defaulting
@@ -400,14 +377,6 @@ class PrimalDualSplitting(IterativeSolver):
         if "z0" not in new and "z" not in new:
             # FBS-routed FISTA delegate (no dual): its own metrics contract
             return self._fused.metrics(old, new)
-        # every stats-emitting delegate (fused single-chip engines AND the
-        # distributed per-shard engines) uses the same 6-lane convention
-        fstats = new.get("_stats")
-        if fstats is not None:
-            from pycsou_tpu.opt.tv import TVDeconvolution as _TV
-
-            rel = _TV._rel_from_stats
-            return {"x": rel(fstats[0], fstats[1]), "z": rel(fstats[2] + fstats[4], fstats[3] + fstats[5])}
         if "z" in new:  # delegate with a stacked dual (distributed XLA chain)
             from pycsou_tpu.core.solver import _rel_improvement as _ri
 
@@ -435,22 +404,21 @@ class PrimalDualSplitting(IterativeSolver):
         return out
 
     def with_shardings(self, **shardings):
-        """Multi-chip solve of the expression.  When the expression matched
-        the TV pattern AND the requested ``x`` sharding is a spatial
+        """Multi-device solve of the expression.  When the expression
+        matched the TV pattern AND the requested ``x`` sharding is a spatial
         partition of the image, the solve is re-dispatched onto the
-        hand-fused per-shard engines (``parallel.solvers``: ppermute halo
-        blocks + per-shard Pallas kernels — the 500-800 iters/s/shard
-        class) instead of stripping pallas and stepping the raw chain at
-        the ~190-260 XLA-chain class (VERDICT r4 task 3).  The delegate's
-        own (optimised) dual/state shardings are used; iterates are
-        unchanged (tests/test_generic_sharded.py asserts equality).
+        hand-written distributed solvers (``parallel.solvers``: ppermute
+        halo exchange inside ``shard_map``, fused Gram per shard) instead of
+        stepping the generic chain under GSPMD.  The delegate's own
+        dual/state shardings are used; iterates are unchanged
+        (tests/test_generic_sharded.py asserts equality).
         Anything unrouted falls back to the generic GSPMD chain, which
         partitions any composed expression."""
         if self._fused is not None:
             routed = self._route_sharded_fused(shardings)
             if routed is not None:
                 return routed
-            return self.replace(_fused=None, iters_per_step=1).with_shardings(**shardings)
+            return self.replace(_fused=None).with_shardings(**shardings)
         return super().with_shardings(**shardings)
 
     def _route_sharded_fused(self, shardings):
@@ -466,7 +434,7 @@ class PrimalDualSplitting(IterativeSolver):
         fused = self._fused
         if not isinstance(fused, TVDeconvolution):
             return None
-        # Every single-chip TV flavour re-dispatches: conv/denoise (filt
+        # Every single-device TV flavour re-dispatches: conv/denoise (filt
         # set), TRUE sampling masks (filt None -> DistributedTVDeconv2D's
         # own mask mode, 1-D meshes only), isotropic or anisotropic.
         # Combined blur+mask (conv set) has no distributed engine yet.
@@ -517,7 +485,7 @@ class PrimalDualSplitting(IterativeSolver):
                     isotropic=fused.iso,
                     mask=fused.mask if mask_mode else None,
                 )
-        except Exception as e:  # ctor gates (rank, divisibility, halo reach)
+        except ValueError as e:  # ctor gates (rank, divisibility, halo reach)
             from pycsou_tpu.opt.fuse import logger as _flog
 
             _flog.warning(
@@ -527,7 +495,7 @@ class PrimalDualSplitting(IterativeSolver):
             return None
         if dist is None:
             return None
-        return self.replace(_fused=dist, iters_per_step=1)
+        return self.replace(_fused=dist)
 
     def objective(self, x):
         """Primal objective ``F(x) + G(x) + H(K x)`` (pure/jittable)."""
@@ -555,8 +523,8 @@ class AcceleratedProximalGradientDescent(IterativeSolver):
     ``fuse=True`` (default) pattern-matches the (F, G) expression at
     construction (opt/fuse.py): LASSO configurations
     (``F = SquaredL2Loss * Convolve2D``, ``G = lam * L1Norm``) delegate the
-    iteration to the fused FISTA engine (opt/lasso.py — Gram + prox +
-    momentum in one Pallas pass).  ``fuse=False`` opts out.
+    iteration to the fused FISTA solver (opt/lasso.py — gradient through
+    the fused convolution Gram).  ``fuse=False`` opts out.
     """
 
     F: DifferentiableMap = None
@@ -620,31 +588,25 @@ class AcceleratedProximalGradientDescent(IterativeSolver):
         self._instats = int(metric_every) == 1
 
         # -- expression recognition (opt/fuse.py): LASSO configurations
-        # delegate to the fused FISTA engine (same iterates, one Pallas pass
-        # per iteration).  ``fuse=False`` opts out.
+        # delegate to the fused FISTA solver (same iterates, gradient
+        # through the fused Gram).  ``fuse=False`` opts out.
         self._fused = None
         if fuse and F is not None and G is not None:
             from pycsou_tpu.opt.fuse import match_lasso
 
-            try:
-                self._fused = match_lasso(
-                    dim_shape, self.F, self.G, self.tau,
-                    self.acceleration, self.d, metric_every=metric_every,
-                )
-            except Exception as e:  # never let the fast path break the solve
-                import warnings
-
-                warnings.warn(f"expression fusion failed, running generic: {e!r}")
-                self._fused = None
+            self._fused = match_lasso(
+                dim_shape, self.F, self.G, self.tau,
+                self.acceleration, self.d, metric_every=metric_every,
+            )
             if self._fused is None:
                 from pycsou_tpu.opt.fuse import explain_lasso_mismatch, logger as _flog
 
                 note = explain_lasso_mismatch(dim_shape, self.F, self.G)
                 if note:
                     # WARNING level: the whole point of the note is that a
-                    # user one default away from the fused engine LEARNS it
-                    # (a 4.9x cliff); info-level records are dropped by the
-                    # default unconfigured-logging setup
+                    # user one default away from the fused engine LEARNS it;
+                    # info-level records are dropped by the default
+                    # unconfigured-logging setup
                     _flog.warning(note)
 
     def initial_state(self):
@@ -658,11 +620,7 @@ class AcceleratedProximalGradientDescent(IterativeSolver):
             "n": jnp.asarray(0, jnp.int32),
         }
         if self._fused is not None:
-            # same state keys; the fused engine adds its kernel-epilogue
-            # metric partial sums
-            fstate = self._fused.initial_state()
-            fstate.update(state)
-            return fstate
+            return state  # the fused LASSO solver keeps the same state keys
         if self._instats:
             state["_gstats"] = jnp.zeros((4,), jnp.float32)
         return state
@@ -696,7 +654,7 @@ class AcceleratedProximalGradientDescent(IterativeSolver):
             )
         return out
 
-    # -- fused-path plumbing (kernel-epilogue metrics) ------------------------
+    # -- fused-path plumbing (in-step metric sums) ----------------------------
     def _wrap_state(self, state):
         # pre-_gstats checkpoints / hand-built states resume cleanly
         # (see PrimalDualSplitting._wrap_state; ADVICE r4)
@@ -728,9 +686,9 @@ class AcceleratedProximalGradientDescent(IterativeSolver):
         return super().metrics(old, new)
 
     def with_shardings(self, **shardings):
-        """GSPMD solve of the *generic* expression: pallas_call does not
-        partition under sharding constraints, so the sharded copy drops the
-        fused delegate and steps the expression tree (XLA partitions it)."""
+        """GSPMD solve of the *generic* expression: the sharded copy drops
+        the fused delegate and steps the expression tree (XLA partitions
+        it)."""
         if self._fused is not None:
             return self.replace(_fused=None).with_shardings(**shardings)
         return super().with_shardings(**shardings)

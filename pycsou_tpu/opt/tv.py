@@ -2,23 +2,21 @@
 
 Mathematically identical to the generic ``PrimalDualSplitting`` configured
 with ``F = SquaredL2Loss o Convolve2D``, ``H = lam L21(axis=0)``,
-``K = Gradient``, ``G = NonNegativeOrthant`` — but with both flagship
+``K = Gradient``, ``G = NonNegativeOrthant`` — but with the flagship
 optimisations applied:
 
-* data-term gradient through the fused convolution Gram (2 large FFTs per
-  iteration instead of 4; ops/_gram.py);
-* the entire stencil/prox/momentum chain fused into one Pallas pass
-  (kernels/tv.py) instead of ~6 XLA HBM round-trips.
+* data-term gradient through the fused convolution Gram (one Gram apply per
+  iteration instead of a forward and an adjoint convolution; ops/_gram.py);
+* the whole stencil/prox/momentum chain as one XLA fusion (kernels/tv.py).
 
 This is the benchmark path (bench.py) and the recommended API for production
-TV deconvolution on one chip; the multi-chip version is
+TV deconvolution on one device; the multi-device version is
 ``parallel.solvers.DistributedTVDeconv2D``.
 """
 from __future__ import annotations
 
 import math
 
-import numpy as np
 from typing import Optional
 
 import jax
@@ -26,67 +24,17 @@ import jax.numpy as jnp
 
 from pycsou_tpu._module import static_field
 from pycsou_tpu.core.solver import IterativeSolver
-from pycsou_tpu.kernels.tv import (
-    MEGA_HG,
-    MEGA_R,
-    make_mega2_lane_plan,
-    make_mega3_corr_mats,
-    make_mega_band,
-    tv_pds_mega2_step,
-    tv_pds_mega3_step,
-    tv_pds_mega_step,
-    tv_pds_stencil_step,
-    tv_pds_sweep_step_stats,
-    tv_pds_stencil_step_xla,
-)
+from pycsou_tpu.kernels.tv import tv_pds_stencil_step_xla
 from pycsou_tpu.ops.conv import Convolve2D
 from pycsou_tpu.utils.shapes import as_shape
 
-__all__ = ["TVDeconvolution", "mega3_plans"]
+__all__ = ["TVDeconvolution"]
 
-
-def mega3_plans(gram, shape):
-    """``(B, C, F, Et_p, Eb_p)`` mega3-class kernel plans (32-row tiles,
-    both Gram directions in-kernel, in-kernel edge-correction matrices) for
-    a rank-1 separable conv Gram on ``shape``, or None when any engine gate
-    fails.  The SINGLE source of the mega3 eligibility rules — consumed by
-    :class:`TVDeconvolution`'s mega3 branch and by
-    :class:`~pycsou_tpu.opt.mcmc.PMYULA`'s fused Langevin engine (the gates
-    must never drift apart; they describe the same kernel family)."""
-    from pycsou_tpu.kernels.tv import (
-        MEGA_HG,
-        make_mega2_lane_plan,
-        make_mega3_corr_mats,
-        make_mega_band,
-        pallas_available,
-    )
-    from pycsou_tpu.ops.conv import SeparableConvGram2D
-
-    H, W = shape
-    R = 32
-    if not pallas_available():
-        return None
-    # shape gates: 32-row tiles (>= 2), 128-aligned width for the corner-fix
-    # slices, and the w-window under the ~0.8MB Mosaic tile budget (the
-    # stricter of the mega/mega2 gates)
-    if H % R or H // R < 2 or W % 128 or W < 384 or 48 * W * 4 > 820_000:
-        return None
-    if not (isinstance(gram, SeparableConvGram2D) and gram.g_meta is not None):
-        return None
-    if gram.g_cols_taps is None:
-        return None
-    K1 = (len(gram.g_rows_acorr) - 1) // 2
-    _, L_r, _, _ = gram.g_meta
-    K1c = len(gram.g_cols_taps) - 1
-    if K1 > MEGA_HG - 1 or L_r > 32 or 2 * K1c > 128:
-        return None
-    C, F = make_mega2_lane_plan(gram.g_cols_taps, W)
-    Et_p, Eb_p = make_mega3_corr_mats(gram.g_rows_E, L_r)
-    B = make_mega_band(gram.g_rows_acorr, r=R)
-    return (
-        jnp.asarray(B), jnp.asarray(C), jnp.asarray(F),
-        jnp.asarray(Et_p), jnp.asarray(Eb_p),
-    )
+# hand-written stencil engines of earlier releases; naming one raises
+# instead of silently running the XLA stencil
+REMOVED_STENCILS = (
+    "mega3", "mega2", "megar", "megarm", "mega", "sweep", "sweepm", "sweepm2", "element",
+)
 
 
 class TVDeconvolution(IterativeSolver):
@@ -94,7 +42,7 @@ class TVDeconvolution(IterativeSolver):
     Condat-Vu PDS; ``A`` is a 2-D convolution (or identity for denoising).
     ``isotropic=False`` swaps the L21 group norm for the ANISOTROPIC
     ``lam * ||grad x||_1`` (the reference's own PDS doc example,
-    /root/reference/pycsou/opt/proxalgs.py:91-119) — same fused engines,
+    pycsou/opt/proxalgs.py:91-119) — same fused stencil,
     per-component box projection instead of the L2-ball dual prox.
 
     Example — denoise a piecewise-constant image::
@@ -112,23 +60,18 @@ class TVDeconvolution(IterativeSolver):
         True
     """
 
-    # engines whose kernels emit the stopping-metric partial sums from
-    # their epilogue (``_stats`` state entry; metric_every=1 is free)
-    _STATS_ENGINES = ("mega2", "mega3", "megar", "megarm", "sweep", "sweepm", "sweepm2")
-
     y: jax.Array = None
     gram: object = None
     atb: jax.Array = None
     # diagonal-Gram mode (``mask`` given): A is a sampling operator whose
-    # Gram is diag(mask) — inpainting / zero-fill super-resolution.  The
-    # fused 'sweepm' engine streams the mask instead of running band Grams
+    # Gram is diag(mask) — inpainting / zero-fill super-resolution
     mask: jax.Array = None
-    # the raw PSF (conv mode): kept so a sharded PDS can re-dispatch this
-    # problem onto the per-shard fused distributed engines (VERDICT r4
-    # task 3 — opt/proxalgs.py PrimalDualSplitting.with_shardings)
+    # the raw PSF (conv mode; ones((1, 1)) for denoising): kept so a sharded
+    # PDS can re-dispatch this problem onto parallel.solvers
+    # (opt/proxalgs.py PrimalDualSplitting.with_shardings)
     filt: jax.Array = None
     # combined (blur + mask) mode: the forward operator M o A — the Gram is
-    # A^H diag(mask) A, fused by the masked megar cascade ('megarm')
+    # A^H diag(mask) A
     conv: object = None
     lam: float = static_field(default=0.1)
     tau: float = static_field(default=0.1)
@@ -137,38 +80,9 @@ class TVDeconvolution(IterativeSolver):
     beta: float = static_field(default=2.0)
     nonneg: bool = static_field(default=True)
     # isotropic (L21 o Gradient, the flagship) vs anisotropic (L1 o Gradient
-    # — the reference's own PDS doc example, proxalgs.py:91-119) TV: the
-    # engines only differ in the per-pixel dual projection (kernels/tv.py
-    # _dual_prox), so EVERY stencil engine supports both
+    # — the reference's own PDS doc example, proxalgs.py:91-119) TV: the two
+    # differ only in the per-pixel dual projection (kernels/tv.py _dual_prox)
     iso: bool = static_field(default=True)
-    use_pallas: bool = static_field(default=False)
-    # "mega3" (TWO iterations per pass, both Gram directions in-kernel,
-    # fastest), "mega2" (one iteration, both Gram directions fused),
-    # "megar" (rank <= 4 PSFs: forward+adjoint sweeps fused into the
-    # stencil, kernels/tvr.py), "mega" (row-Gram fused, lane Gram as an
-    # XLA pass), "sweep" (scratch-carry pipeline), "element" (halo
-    # blocks), "xla" (pure-XLA twin; the CPU path).  mega3 sets
-    # iters_per_step=2: it/history/max_iter stay in iteration units, the
-    # stopping metric measures the improvement across a double step
-    # (conservative vs single-step).
-    stencil_mode: str = static_field(default="xla")
-    mega_B: jax.Array = None  # (R+8, R+2*HG) fused row-Gram band matrix
-    # mega2 lane band: (256, 128) merged [Cc; C0] form when the column
-    # reach <= 64 (corner dots collapse, kernels/conv2d.py), else the
-    # (384, 128) three-block legacy form
-    mega_C: jax.Array = None
-    mega_F: jax.Array = None  # (256, 256) mega2 lane corner-fix matrix
-    # mega2 tile rows: 32 when feasible (halves the sequential grid's
-    # per-step overhead: 2.34 -> see docs/BENCH.md), else 16
-    mega_r: int = static_field(default=MEGA_R)
-    # mega3 (two fused iterations per pass) padded corr matrices
-    mega_Et: jax.Array = None
-    mega_Eb: jax.Array = None
-    # megar (rank <= 4) fused sweep plans (kernels/tvr.py make_megar_plan)
-    megar_Bf: jax.Array = None
-    megar_Cf: jax.Array = None
-    megar_Ba: jax.Array = None
-    megar_Ca: jax.Array = None
 
     def __init__(
         self,
@@ -180,7 +94,6 @@ class TVDeconvolution(IterativeSolver):
         tau: Optional[float] = None,
         sigma: Optional[float] = None,
         rho: float = 0.9,
-        use_pallas: str = "auto",
         stencil: str = "auto",
         max_iter: int = 500,
         min_iter: int = 10,
@@ -200,30 +113,11 @@ class TVDeconvolution(IterativeSolver):
 
         self.mask = None
         self.filt = None
-        if mask is None and filt is None and (
-            stencil in ("sweepm", "sweepm2")
-            or (stencil in ("auto", "xla") and shape[0] * shape[1] >= (1 << 21))
-        ):
-            # LARGE-image denoising (A = I) IS the all-ones diagonal Gram:
-            # route it through the masked engines — the sweepm2 double-step
-            # kernel has no band matmuls at all and beats the identity-Gram
-            # mega3 machinery ~1.8x at 4096^2 (2346 vs 1523 iters/s,
-            # stream-bound).  BELOW ~2M pixels the per-grid-step overhead
-            # dominates and mega3 stays faster (91k vs 24k at 512^2), so
-            # small denoises keep the identity-conv path; explicit
-            # sweepm/sweepm2 requests always convert.
-            # Same semantics either way: atb = y, beta = 2, auto steps equal.
-            mask = np.ones(shape, np.float32)
-            # identity-conv marker: with_shardings can still re-dispatch a
-            # denoise onto DistributedTVDeconv2D (a true sampling mask has
-            # filt None and declines routing)
-            self.filt = jnp.ones((1, 1), jnp.float32)
         self.conv = None
         if mask is not None and filt is not None:
             # COMBINED (blur + mask) mode: forward operator M o A — partial
-            # blurred measurements (super-resolution with blur, VERDICT r4
-            # task 2's '(o Conv)' case).  ``y`` is the back-projection
-            # M^H y_obs; Gram = A^H diag(mask) A (masked megar cascade).
+            # blurred measurements (super-resolution with blur).  ``y`` is
+            # the back-projection M^H y_obs; Gram = A^H diag(mask) A.
             m = jnp.asarray(mask, jnp.float32)
             if m.shape != tuple(shape):
                 raise ValueError(f"mask shape {m.shape} != image shape {tuple(shape)}")
@@ -247,13 +141,15 @@ class TVDeconvolution(IterativeSolver):
             self.gram = None
             self.atb = self.y
             self.beta = 2.0 * float(jnp.max(m))
+        elif filt is None:
+            # denoising (A = I): the data gradient is elementwise,
+            # 2 (x - y).  ``filt`` marks the identity convolution so a
+            # sharded PDS can still re-dispatch the problem
+            self.filt = jnp.ones((1, 1), jnp.float32)
+            self.gram = None
+            self.atb = self.y
+            self.beta = 2.0
         else:
-            if filt is None:
-                # denoising (A = I) as the identity 1x1 convolution: bitwise
-                # the same math (gram = I, atb = y, beta = 2) but the rank-1
-                # banded machinery then qualifies the fused mega engines —
-                # 4096^2 TV denoising runs the same kernel as deconvolution
-                filt = np.ones((1, 1), np.float32)
             A = Convolve2D(shape, filt)
             self.filt = jnp.asarray(filt, jnp.float32)
             self.gram = A.gram
@@ -264,222 +160,16 @@ class TVDeconvolution(IterativeSolver):
         if tau is None:
             b = self.beta
             tau = (1.0 / L_K**2) * (-b / 4 + math.sqrt(b**2 / 16 + L_K**2))
-        # the fused kernels take tau and sigma independently (every engine
-        # plumbs both scalars into the stencil) — the auto rule keeps the
-        # reference's balanced tau = sigma, an explicit sigma overrides it
-        # (VERDICT r3 task 3a: tau != sigma was a silent un-fuse before)
+        # the stencil takes tau and sigma independently — the auto rule
+        # keeps the reference's balanced tau = sigma, an explicit sigma
+        # overrides it
         self.tau = float(tau)
         self.sigma = float(tau) if sigma is None else float(sigma)
 
-        if use_pallas == "auto":
-            # Auto-on for TPU when the row count is tile-aligned; bench.py
-            # falls back to XLA stencils if the Mosaic compile fails on an
-            # exotic runtime.
-            from pycsou_tpu.kernels.tv import pallas_available
-
-            self.use_pallas = (
-                jax.default_backend() not in ("cpu",)
-                and shape[0] % 8 == 0
-                and pallas_available()
-            )
-        else:
-            self.use_pallas = bool(use_pallas)
-        # stencil engine ladder (fastest first): mega3 (two fused iterations
-        # per pass) > mega2 (both Gram directions in-kernel) > mega (row-Gram
-        # in-kernel) > sweep (single-stream stencil) > element (halo blocks)
-        # > xla (pure-XLA twin; the CPU path).  stencil="auto" picks the
-        # fastest eligible engine; an explicit name is honored and raises if
-        # the shape/PSF doesn't qualify (ADVICE r2).
-        from pycsou_tpu.kernels.tv import element_available, sweep_available
-
-        _STENCILS = ("auto", "mega3", "mega2", "megar", "megarm", "mega", "sweep", "sweepm", "sweepm2", "element", "xla")
-        if stencil not in _STENCILS:
-            raise ValueError(f"unknown stencil {stencil!r}; expected one of {_STENCILS}")
-
-        self.mega_B = None
-        self.mega_C = None
-        self.mega_F = None
-        self.mega_r = MEGA_R
-        self.mega_Et = None
-        self.mega_Eb = None
-        self.megar_Bf = self.megar_Cf = self.megar_Ba = self.megar_Ca = None
-        if stencil == "xla" or not self.use_pallas:
-            if stencil not in ("auto", "xla"):
-                raise ValueError(
-                    f"stencil={stencil!r} needs the Pallas engines, but "
-                    "use_pallas resolved False on this backend/shape"
-                )
-            self.use_pallas = False
-            self.stencil_mode = "xla"
-        elif self.conv is not None:
-            # combined (blur + mask) mode: the masked megar cascade fuses
-            # forward sweep -> mask -> adjoint sweep -> stencil for any
-            # rank <= 4 PSF; anything else runs the XLA chain
-            if stencil not in ("auto", "megarm"):
-                raise ValueError(
-                    "combined blur+mask mode supports stencil 'auto', "
-                    "'megarm' or 'xla'"
-                )
-            megar_plan = None
-            fac = Convolve2D._band_factors(jnp.asarray(self.filt, jnp.float32))
-            if fac is not None:
-                from pycsou_tpu.kernels.tvr import make_megar_plan
-
-                megar_plan = make_megar_plan(fac[0], fac[1], shape)
-            if megar_plan is not None:
-                (self.megar_Bf, self.megar_Cf, self.megar_Ba,
-                 self.megar_Ca, self.mega_r) = megar_plan
-                self.stencil_mode = "megarm"
-            elif stencil == "megarm":
-                raise ValueError(
-                    f"stencil='megarm' is not eligible for shape {shape} "
-                    "with this PSF (needs a rank <= 4 PSF within the sweep "
-                    "plan gates)"
-                )
-            else:
-                self.stencil_mode = "xla"
-                self.use_pallas = False
-        elif self.mask is not None:
-            # diagonal-Gram mode ladder: sweepm2 (TWO iterations per pass —
-            # the mega3 trick without Gram rings) > sweepm > xla.  The
-            # band/mega plans don't apply to a per-pixel Gram.
-            if stencil not in ("auto", "sweepm", "sweepm2"):
-                raise ValueError(
-                    "mask mode supports stencil 'auto', 'sweepm', 'sweepm2' "
-                    "or 'xla'"
-                )
-            from pycsou_tpu.kernels.tv import _pick_sweep_rows
-
-            _r = _pick_sweep_rows(*shape)
-            m2_ok = _r != 0 and shape[0] // _r >= 2
-            if stencil in ("sweepm", "sweepm2"):
-                # an explicit engine request is honored or raises (ADVICE
-                # r2 contract) — never silently degraded
-                ok = {"sweepm": _r != 0, "sweepm2": m2_ok}[stencil]
-                if not ok:
-                    raise ValueError(
-                        f"stencil={stencil!r} is not eligible for shape "
-                        f"{shape} (no sweep tiling; H needs an 8-divisor "
-                        "within the Mosaic tile budget"
-                        + (", >= 2 tiles for sweepm2)" if stencil == "sweepm2" else ")")
-                    )
-                self.stencil_mode = stencil
-            elif m2_ok:
-                self.stencil_mode = "sweepm2"
-            elif _r != 0:
-                self.stencil_mode = "sweepm"
-            else:
-                self.stencil_mode = "xla"
-                self.use_pallas = False
-            if self.stencil_mode == "sweepm2":
-                self.iters_per_step = 2
-        else:
-            H, W = shape
-            mega_ok = self._mega_eligible(shape)
-            mega2_ok = mega_ok and self._mega2_eligible(shape)
-            mega_r2 = MEGA_R
-            if mega2_ok and H % 32 == 0 and (32 + 8) * W * 4 <= 820_000:
-                # 32-row tiles halve the sequential grid's per-step overhead
-                mega_r2 = 32
-            # mega3 gates + plan construction live in ONE place
-            # (module-level mega3_plans — PMYULA's fused engine shares it)
-            m3_plans = mega3_plans(self.gram, shape) if mega2_ok and mega_r2 == 32 else None
-            mega3_ok = m3_plans is not None
-            # megar: any rank <= 4 PSF rides the fused forward+adjoint-sweep
-            # stencil (kernels/tvr.py) — the rank >= 2 flagship engine
-            megar_plan = None
-            if stencil == "megar" or (stencil == "auto" and not mega2_ok):
-                fac = Convolve2D._band_factors(jnp.asarray(filt, jnp.float32))
-                if fac is not None:
-                    from pycsou_tpu.kernels.tvr import make_megar_plan
-
-                    megar_plan = make_megar_plan(fac[0], fac[1], shape)
-            megar_ok = megar_plan is not None
-            mode = stencil
-            if stencil == "auto":
-                # mega3: the raw kernel is ~neutral vs mega2 but the double
-                # step halves the per-iteration metric/launch overhead
-                # (508 -> 573 iters/s at 4096^2, docs/BENCH.md)
-                if mega3_ok:
-                    mode = "mega3"
-                elif mega2_ok:
-                    mode = "mega2"
-                elif megar_ok:
-                    mode = "megar"
-                elif mega_ok:
-                    mode = "mega"
-                elif sweep_available(*shape):
-                    mode = "sweep"
-                elif element_available(*shape):
-                    mode = "element"
-                else:
-                    # no feasible Pallas tiling at all: the XLA twin
-                    mode = "xla"
-                    self.use_pallas = False
-            _need = {"mega3": mega3_ok, "mega2": mega2_ok, "megar": megar_ok,
-                     "mega": mega_ok, "sweep": sweep_available(*shape),
-                     "sweepm": False, "sweepm2": False,  # need mask mode
-                     "megarm": False,  # needs combined blur+mask mode
-                     "element": element_available(*shape)}
-            if not _need.get(mode, True):
-                raise ValueError(
-                    f"stencil={mode!r} is not eligible for shape {shape} with "
-                    "this PSF (see TVDeconvolution._mega_eligible/_mega2_eligible)"
-                )
-            if mode == "megar":
-                self.megar_Bf, self.megar_Cf, self.megar_Ba, self.megar_Ca, self.mega_r = megar_plan
-            if mode in ("mega2", "mega3"):
-                self.mega_r = mega_r2
-                C, F = make_mega2_lane_plan(self.gram.g_cols_taps, W)
-                self.mega_C = jnp.asarray(C)
-                self.mega_F = jnp.asarray(F)
-            if mode == "mega3":
-                _, _, _, self.mega_Et, self.mega_Eb = m3_plans
-                self.iters_per_step = 2
-            if mode in ("mega", "mega2", "mega3"):
-                self.mega_B = jnp.asarray(make_mega_band(self.gram.g_rows_acorr, r=self.mega_r))
-            self.stencil_mode = mode
-
-    def with_shardings(self, **shardings) -> "TVDeconvolution":
-        """Generic GSPMD solve (core/solver.py): pallas_call does not
-        partition under sharding constraints — XLA would silently gather
-        the full arrays onto every device around each kernel — so the
-        sharded copy runs the pure-XLA stencil twin (GSPMD partitions it
-        fine).  For hand-optimised multi-chip TV use
-        ``parallel.solvers.DistributedTVDeconv2D`` (halo kernels)."""
-        out = super().with_shardings(**shardings)
-        return out.replace(
-            stencil_mode="xla", use_pallas=False, iters_per_step=1,
-            mega_B=None, mega_C=None, mega_F=None, mega_Et=None, mega_Eb=None,
-            megar_Bf=None, megar_Cf=None, megar_Ba=None, megar_Ca=None,
-        )
-
-    def _mega_eligible(self, shape) -> bool:
-        """Rank-1 PSF with the 2-pass Gram plan, taps within the fused
-        kernel's row reach, tile-aligned height, and a VMEM-feasible width
-        (the 48-row w-window must stay under the ~0.8MB Mosaic tile budget)."""
-        from pycsou_tpu.ops.conv import SeparableConvGram2D
-
-        g = self.gram
-        if not (isinstance(g, SeparableConvGram2D) and g.g_meta is not None):
-            return False
-        K1 = (len(g.g_rows_acorr) - 1) // 2
-        H, W = shape
-        return (
-            K1 <= MEGA_HG - 1
-            and H % MEGA_R == 0
-            and (MEGA_R + 2 * MEGA_HG) * W * 4 <= 820_000
-        )
-
-    def _mega2_eligible(self, shape) -> bool:
-        """Mega2 additionally needs raw lane factor taps, 128-aligned width
-        for the corner-fix slices, and lane-Gram reach within one corner."""
-        g = self.gram
-        H, W = shape
-        if g.g_cols_taps is None:
-            return False
-        K1c = len(g.g_cols_taps) - 1
-        return W % 128 == 0 and W >= 384 and 2 * K1c <= 128
+        if stencil in REMOVED_STENCILS:
+            raise ValueError(f"stencil={stencil!r} was removed; expected 'auto' or 'xla'")
+        if stencil not in ("auto", "xla"):
+            raise ValueError(f"unknown stencil {stencil!r}; expected 'auto' or 'xla'")
 
     # -- iteration ---------------------------------------------------------
     def _grad(self, x):
@@ -493,82 +183,24 @@ class TVDeconvolution(IterativeSolver):
 
     def initial_state(self):
         shape = self.y.shape
-        # duals as separate arrays: stacking them into (2, H, W) costs
-        # ~0.4 ms/iter of hidden slice/stack copies around the Pallas
-        # kernel at 4096^2 (kernels/tv.py tv_pds_mega2_step docstring)
-        state = {
+        # duals as separate arrays in place of a stacked (2, H, W) dual that
+        # every step would slice and restack
+        return {
             "x": jnp.zeros(shape, jnp.float32),
             "z0": jnp.zeros(shape, jnp.float32),
             "z1": jnp.zeros(shape, jnp.float32),
         }
-        if self.stencil_mode in self._STATS_ENGINES:
-            # kernel-epilogue metric partial sums (VERDICT r2 task 3);
-            # "_"-prefix: solver-internal, excluded from diagnostics vars
-            state["_stats"] = jnp.zeros((6,), jnp.float32)
-        return state
 
     def step(self, state):
         x, z0, z1 = state["x"], state["z0"], state["z1"]
         kw = dict(tau=self.tau, sigma=self.sigma, rho=self.rho, lam=self.lam, nonneg=self.nonneg, iso=self.iso)
-        if self.stencil_mode == "mega3":
-            x, z0, z1, stats = tv_pds_mega3_step(
-                x, z0, z1, self.atb, self.mega_B, self.mega_C, self.mega_F,
-                self.mega_Et, self.mega_Eb, mega_r=self.mega_r, **kw,
-            )
-            return {"x": x, "z0": z0, "z1": z1, "_stats": stats[0, :6]}
-        if self.stencil_mode in ("megar", "megarm"):
-            from pycsou_tpu.kernels.tvr import tv_pds_megar_step
+        x, z0, z1 = tv_pds_stencil_step_xla(x, z0, z1, self._grad(x), **kw)
+        return {"x": x, "z0": z0, "z1": z1}
 
-            x, z0, z1, stats = tv_pds_megar_step(
-                x, z0, z1, self.atb, self.megar_Bf, self.megar_Cf,
-                self.megar_Ba, self.megar_Ca, mega_r=self.mega_r,
-                mask=self.mask if self.stencil_mode == "megarm" else None, **kw,
-            )
-            return {"x": x, "z0": z0, "z1": z1, "_stats": stats[0, :6]}
-        if self.stencil_mode == "mega2":
-            corr = self._mega2_corr(x)
-            x, z0, z1, stats = tv_pds_mega2_step(
-                x, z0, z1, self.atb, corr, self.mega_B, self.mega_C, self.mega_F,
-                mega_r=self.mega_r, **kw,
-            )
-            return {"x": x, "z0": z0, "z1": z1, "_stats": stats[0, :6]}
-        if self.stencil_mode == "sweepm2":
-            from pycsou_tpu.kernels.tv import tv_pds_sweepm2_step
-
-            x, z0, z1, stats = tv_pds_sweepm2_step(
-                x, z0, z1, self.mask, self.atb, **kw
-            )
-            return {"x": x, "z0": z0, "z1": z1, "_stats": stats[0, :6]}
-        if self.stencil_mode == "sweepm":
-            from pycsou_tpu.kernels.tv import tv_pds_sweepm_step_stats
-
-            x, z0, z1, stats = tv_pds_sweepm_step_stats(
-                x, z0, z1, self.mask, self.atb, **kw
-            )
-            return {"x": x, "z0": z0, "z1": z1, "_stats": stats[0, :6]}
-        if self.stencil_mode == "sweep":
-            # split duals + the kernel's epilogue stats (computed in-kernel
-            # regardless): metric_every=1 free, no (2,H,W) stack copies
-            g = self._grad(x)
-            x, z0, z1, stats = tv_pds_sweep_step_stats(x, z0, z1, g, **kw)
-            return {"x": x, "z0": z0, "z1": z1, "_stats": stats[0, :6]}
-        z = jnp.stack([z0, z1], axis=0)
-        if self.stencil_mode == "mega":
-            w, corr = self._mega_colgram(x)
-            x, z = tv_pds_mega_step(x, z, w, self.atb, corr, self.mega_B, **kw)
-            return {"x": x, "z0": z[0], "z1": z[1]}
-        g = self._grad(x)
-        if self.stencil_mode == "element":
-            x, z = tv_pds_stencil_step(x, z, g, **kw)
-        else:
-            x, z = tv_pds_stencil_step_xla(x, z, g, **kw)
-        return {"x": x, "z0": z[0], "z1": z[1]}
-
-    # -- kernel-epilogue metrics (VERDICT r2 tasks 3+4) ----------------------
     @staticmethod
     def _rel_from_stats(d2, o2):
-        """||new-old|| / ||old|| from the kernel's partial sums, with the
-        reference's 0/inf conventions (core/solver.py _rel_improvement)."""
+        """||new-old|| / ||old|| from partial sums, with the reference's
+        0/inf conventions (core/solver.py _rel_improvement)."""
         nd = jnp.sqrt(d2)
         no = jnp.sqrt(o2)
         return jnp.where(
@@ -576,102 +208,6 @@ class TVDeconvolution(IterativeSolver):
             jnp.where(nd == 0.0, 0.0, jnp.inf),
             nd / jnp.where(no == 0.0, 1.0, no),
         )
-
-    def metric(self, old, new):
-        """Stopping metric from the kernel's epilogue partial sums when the
-        fused engines run — zero extra HBM passes, so ``metric_every=1``
-        (the reference's per-iteration semantics) costs ~nothing.  For mega3
-        the stats measure the SECOND iteration only, so the fastest engine
-        has single-iteration stopping semantics."""
-        if self.stencil_mode in self._STATS_ENGINES and "_stats" in new:
-            st = new["_stats"]
-            return self._rel_from_stats(st[0], st[1])
-        return super().metric(old, new)
-
-    def metrics(self, old, new):
-        if self.stencil_mode in self._STATS_ENGINES and "_stats" in new:
-            st = new["_stats"]
-            return {
-                "x": self._rel_from_stats(st[0], st[1]),
-                "z0": self._rel_from_stats(st[2], st[3]),
-                "z1": self._rel_from_stats(st[4], st[5]),
-            }
-        return super().metrics(old, new)
-
-    def _mega_colgram(self, x):
-        """Lane-direction Gram pass ``w = ColGram(x)`` plus the thin x2-scaled
-        row-Gram edge corrections consumed by :func:`tv_pds_mega_step`."""
-        from pycsou_tpu.kernels.band import gram_band_cols, gram_chanconv_cols
-
-        g = self.gram
-        _, L_r, lead_c, L_c = g.g_meta
-        Ec = g.g_cols_E
-        if g.g_cols_chan is not None:
-            # channel-conv formulation: no pad copy, MXU work ~ CHAN_TILE
-            # (1.36 -> 0.95 ms at 4096^2, docs/BENCH.md)
-            w = gram_chanconv_cols(x, g.g_cols_chan, Ec, L_c)
-        else:
-            w = gram_band_cols(
-                x,
-                (
-                    (g.g_cols_band[0], g.g_cols_band[1], lead_c),
-                    Ec[0] if Ec is not None else None,
-                    Ec[1] if Ec is not None else None,
-                    L_c,
-                ),
-            )
-        W = x.shape[1]
-        prec = jax.lax.Precision.HIGHEST
-        if g.g_rows_E is not None:
-            Etr, Ebr = g.g_rows_E
-            K1 = Etr.shape[0]
-            top = 2.0 * jnp.matmul(Etr, w[:L_r], precision=prec)
-            bot = 2.0 * jnp.matmul(Ebr, w[-L_r:], precision=prec)
-            corr = (
-                jnp.zeros((2 * MEGA_HG, W), x.dtype)
-                .at[:K1].set(top)
-                .at[2 * MEGA_HG - K1 :].set(bot)
-            )
-        else:
-            corr = jnp.zeros((2 * MEGA_HG, W), x.dtype)
-        return w, corr
-
-    def _mega2_corr(self, x):
-        """x2-scaled row-Gram edge corrections from the first/last rows of x
-        — the lane Gram is row-local, so ``w``'s edge rows come from thin
-        (L_r, W) slices instead of the full ColGram pass mega needs."""
-        from pycsou_tpu.kernels.band import gram_band_cols, gram_chanconv_cols
-
-        g = self.gram
-        _, L_r, lead_c, L_c = g.g_meta
-        Ec = g.g_cols_E
-        if g.g_cols_chan is not None:
-            w_top = gram_chanconv_cols(x[:L_r], g.g_cols_chan, Ec, L_c)
-            w_bot = gram_chanconv_cols(x[-L_r:], g.g_cols_chan, Ec, L_c)
-        else:
-            gplan = (
-                (g.g_cols_band[0], g.g_cols_band[1], lead_c),
-                Ec[0] if Ec is not None else None,
-                Ec[1] if Ec is not None else None,
-                L_c,
-            )
-            w_top = gram_band_cols(x[:L_r], gplan)
-            w_bot = gram_band_cols(x[-L_r:], gplan)
-        W = x.shape[1]
-        prec = jax.lax.Precision.HIGHEST
-        if g.g_rows_E is not None:
-            Etr, Ebr = g.g_rows_E
-            K1 = Etr.shape[0]
-            top = 2.0 * jnp.matmul(Etr, w_top, precision=prec)
-            bot = 2.0 * jnp.matmul(Ebr, w_bot, precision=prec)
-            corr = (
-                jnp.zeros((2 * MEGA_HG, W), x.dtype)
-                .at[:K1].set(top)
-                .at[2 * MEGA_HG - K1 :].set(bot)
-            )
-        else:
-            corr = jnp.zeros((2 * MEGA_HG, W), x.dtype)
-        return corr
 
     def objective(self, x):
         """Objective value (pure/jittable; usable with track_objective).

@@ -3,11 +3,11 @@
 Halo exchange (parallel/spatial.py) covers compact-support operators; for
 GLOBAL transforms — circular convolution diagonalised by the DFT, Fourier
 operators, very wide PSFs — a sharded image cannot be transformed locally.
-The TPU-native answer is the pencil decomposition: with the image
+The answer is the pencil decomposition: with the image
 row-sharded over a mesh axis, the 2-D FFT becomes
 
     local rfft along the (unsharded) column axis
-    -> one ``lax.all_to_all`` (ICI) that re-shards columns<->rows
+    -> one ``lax.all_to_all`` that re-shards columns<->rows
     -> local fft along the (now unsharded) row axis
 
 so each device ends up holding a COLUMN pencil of the full spectrum.
@@ -87,7 +87,7 @@ class PencilCircularConv2D(LinearOperator):
     The transfer function is stored as column pencils sharded over the
     mesh (``PartitionSpec(None, axis)``), so a spectral multiply touches
     only device-local data; each apply/adjoint costs one pencil-FFT
-    roundtrip = two ``all_to_all``s over ICI.  ``gram``/``pinv`` ride the
+    roundtrip = two ``all_to_all``s.  ``gram``/``pinv`` ride the
     same machinery with ``|H|^2`` / damped-inverse pencils.
 
     Inputs may carry any sharding — ``shard_map`` re-shards to rows — but
@@ -118,8 +118,8 @@ class PencilCircularConv2D(LinearOperator):
             h_hat = jnp.fft.rfft2(hfull)
         h_hat = jnp.asarray(h_hat)
         re, im = jnp.real(h_hat), jnp.imag(h_hat)
-        # d2h of the re/im PARTS only: complex d2h is unimplemented on some
-        # TPU runtimes (ops/conv.py CircularConvolve convention)
+        # host copies of the re/im parts (ops/conv.py CircularConvolve
+        # convention)
         lip = float(np.max(np.hypot(np.asarray(re), np.asarray(im))))
         super().__init__(dim_shape, dim_shape, lipschitz=lip, dtype=dtype)
         wl = pencil_cols(W, n)

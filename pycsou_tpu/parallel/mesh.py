@@ -3,7 +3,7 @@ init.
 
 The reference has no distributed backend at all (SURVEY §2.6/§5 — its only
 parallelism is joblib process pools and optional Dask graphs).  Here the
-equivalents are ``jax.sharding.Mesh`` + collectives over ICI/DCN:
+equivalents are ``jax.sharding.Mesh`` + collectives between devices:
 
 * stacked-operator fan-in  -> psum            (joblib V-stack adjoint sum)
 * block-diagonal blocks    -> per-shard independence
@@ -61,7 +61,7 @@ def shard_along(mesh: Mesh, axis_name: str, ndim: int, array_axis: int = 0) -> N
 
 def distributed_init(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None, process_id: Optional[int] = None):
     """Multi-host bring-up: thin wrapper over ``jax.distributed.initialize``
-    (ICI within a slice, DCN across hosts).  No-op when single-process."""
+    (one process per host).  No-op when single-process."""
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(

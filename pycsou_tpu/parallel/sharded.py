@@ -1,4 +1,4 @@
-"""Mesh-sharded explicit operators — the TPU replacement for the reference's
+"""Mesh-sharded explicit operators — the replacement for the reference's
 Dask-chunked matrices (/root/reference/pycsou/linop/base.py:87-156) and its
 (never-implemented) parallel block operators (base.py:437-440, 536-539).
 
@@ -6,7 +6,7 @@ Dask-chunked matrices (/root/reference/pycsou/linop/base.py:87-156) and its
   or 2-D device mesh as a sharded ``jax.Array``; matvec/rmatvec are ordinary
   jitted contractions and XLA's SPMD partitioner inserts the psum/all-gather
   collectives (the scaling-book recipe: annotate shardings, let XLA place
-  the communication on ICI).  Semantics of the inserted collectives:
+  the communication between devices).  Semantics of the inserted collectives:
 
   - row-sharded (``row_axis`` only): each device holds a row block; matvec
     is embarrassingly parallel (output row-sharded), rmatvec psums partial

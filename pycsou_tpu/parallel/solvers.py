@@ -1,6 +1,6 @@
 """Distributed solvers: mesh-sharded PDS for TV-regularised deconvolution.
 
-The flagship multi-chip path (BASELINE configs 3/5): the image, measurement
+The flagship multi-device path (BASELINE configs 3/5): the image, measurement
 and dual variables are row-sharded over a 1-D mesh; one PDS iteration is a
 single ``shard_map``-ped XLA computation in which
 
@@ -17,8 +17,8 @@ GSPMD all-reduces over the mesh), on-device history, per-variable
 diagnostics, checkpoint/resume and ``SolveInfo`` all apply unchanged — a
 distributed solve can assert "converged to 1e-6".
 
-The reference has no distributed solver at all (SURVEY §2.6); this is the
-TPU-native replacement for its joblib/Dask story.
+The reference has no distributed solver at all (SURVEY §2.6); this replaces
+its joblib/Dask story.
 """
 from __future__ import annotations
 
@@ -54,27 +54,6 @@ def _join(pair):
     return jax.lax.complex(pair[0], pair[1])
 
 
-def _pick_sweepsp_rows(h_local: int, W: int) -> int:
-    """Largest feasible sweepsp tile rows (plain (r, W) f32 tiles under the
-    ~0.8MB Mosaic budget, dividing the local block), or 0 — the ONE source
-    of the sweepsp eligibility gates (conv and mask modes share it)."""
-    for r in (32, 16, 8):
-        if h_local % r == 0 and h_local >= r and (r + 8) * W * 4 <= 820_000:
-            return r
-    return 0
-
-
-def _pallas_on(use_pallas) -> bool:
-    """Shared engine-enable predicate (interpret / forced / auto-on-TPU)."""
-    import jax
-
-    return (
-        use_pallas == "interpret"
-        or bool(use_pallas is True)
-        or (use_pallas == "auto" and jax.default_backend() not in ("cpu",))
-    )
-
-
 class DistributedTVDeconv2D(IterativeSolver):
     r"""Condat-Vu PDS for ``min_x ||h * x - y||^2 + lam ||grad x||_{2,1}
     (+ nonnegativity)`` on an image row-sharded over a device mesh.
@@ -104,10 +83,10 @@ class DistributedTVDeconv2D(IterativeSolver):
     atb: jax.Array = None
     # diagonal-Gram (sampling-operator) mode: A^H A = diag(mask) — the
     # distributed realisation of opt/tv.py's inpainting/superres mode.
-    # grad is elementwise per shard; the stencil rides the sweepsp engine.
+    # grad is elementwise per shard.
     mask: jax.Array = None
-    # rFFT transfer functions, split re/im (complex d2h is unimplemented on
-    # some TPU runtimes and split-real keeps closure-jit usable)
+    # rFFT transfer functions, split re/im (split-real keeps closure-jit
+    # usable)
     _h_hat_fwd: tuple = None
     _h_hat_adj: tuple = None
     _acorr_hat: tuple = None
@@ -117,7 +96,7 @@ class DistributedTVDeconv2D(IterativeSolver):
     _band_rows: tuple = None
     _band_cols: tuple = None
     # channel-conv form of the LOCAL column-Gram pass (lane axis unsharded;
-    # kernels.band.make_chanconv) — no pad copy, MXU work ~ CHAN_TILE/128
+    # kernels.band.make_chanconv) — no pad copy, matmul work ~ CHAN_TILE/128
     _band_cols_chan: jax.Array = None
     lam: float = static_field(default=0.1)
     tau: float = static_field(default=0.1)
@@ -134,25 +113,6 @@ class DistributedTVDeconv2D(IterativeSolver):
     _use_gram: bool = static_field(default=True)
     _use_band: bool = static_field(default=False)
     _band_meta: tuple = static_field(default=None)  # (lead_r, L_r, lead_c, L_c)
-    # per-shard fused Pallas engines (VERDICT r2 task 1): "megasp" = both
-    # Gram directions fused in-kernel per shard (rank-1 PSF), "megarsp" =
-    # forward+adjoint sweeps fused into the stencil per shard (any rank <= 4
-    # PSF, kernels/tvr.py), "sweepsp" = sharded Gram + fused stencil sweep
-    # (any PSF), "" = pure-XLA chain
-    _sp_engine: str = static_field(default="")
-    _sp_r: int = static_field(default=0)  # tile rows == halo rows
-    _pallas_interpret: bool = static_field(default=False)
-    # mega2 plan arrays (pytree children; None on the XLA path)
-    _mega_B: jax.Array = None
-    _mega_C: jax.Array = None
-    _mega_F: jax.Array = None
-    _atb_ext: jax.Array = None  # halo-extended A^H y (megasp/megarsp)
-    # megar (rank <= 4) fused sweep plans (kernels/tvr.py)
-    _megar_Bf: jax.Array = None
-    _megar_Cf: jax.Array = None
-    _megar_Ba: jax.Array = None
-    _megar_Ca: jax.Array = None
-
     def __init__(
         self,
         shape: Tuple[int, int],
@@ -169,7 +129,6 @@ class DistributedTVDeconv2D(IterativeSolver):
         min_iter: int = 10,
         accuracy_threshold: float = 1e-6,
         verbose: Optional[int] = None,
-        use_pallas: str = "auto",
         isotropic: bool = True,
         mask=None,
     ):
@@ -192,21 +151,11 @@ class DistributedTVDeconv2D(IterativeSolver):
         self.nonneg = bool(nonneg)
         self.rho = float(rho)
 
-        if use_pallas is True and jax.default_backend() in ("cpu",):
-            # a compiled (non-interpret) Mosaic kernel cannot lower on the
-            # CPU backend — fail at construction with the fix named (ADVICE r4)
-            raise ValueError(
-                "use_pallas=True forces the compiled TPU engine but the "
-                "active backend is CPU; pass use_pallas='interpret' for "
-                "CPU meshes or leave the default 'auto'"
-            )
-
         self.mask = None
         if mask is not None:
             # diagonal-Gram (sampling-operator) mode, the distributed twin
             # of opt/tv.py's inpainting mode: ``y`` is the back-projected
-            # data A^H y, grad = 2 (mask * x - atb) elementwise per shard,
-            # and the stencil rides the sweepsp fused engine.
+            # data A^H y, grad = 2 (mask * x - atb) elementwise per shard.
             if filt is not None:
                 raise ValueError(
                     "mask mode models a diagonal sampling forward operator; "
@@ -229,14 +178,6 @@ class DistributedTVDeconv2D(IterativeSolver):
             self._h_hat_fwd = self._h_hat_adj = self._acorr_hat = None
             self._use_gram = self._use_band = False
             self._band_rows = self._band_cols = None
-            self._mega_B = self._mega_C = self._mega_F = self._atb_ext = None
-            self._megar_Bf = self._megar_Cf = self._megar_Ba = self._megar_Ca = None
-            self._sp_engine, self._sp_r = "", 0
-            self._pallas_interpret = use_pallas == "interpret"
-            if _pallas_on(use_pallas):
-                r = _pick_sweepsp_rows(H // n_dev, W)
-                if r:
-                    self._sp_engine, self._sp_r = "sweepsp", r
             return
 
         self.filt = jnp.asarray(filt, dtype)
@@ -278,9 +219,9 @@ class DistributedTVDeconv2D(IterativeSolver):
         self._use_gram = h_local >= m0  # gram strips need block >= kernel
 
         # rank-1 banded Gram (kernels/band.py): same (m0-1)-row halo as the
-        # FFT overlap-save path, but the local work per iteration is four
-        # 128x128 MXU matmul passes instead of an FFT roundtrip (single-chip
-        # measurement: 2.4ms banded vs 9.2ms FFT at 4096^2, docs/BENCH.md)
+        # FFT overlap-save path, but the local work per iteration is banded
+        # matmul passes instead of an FFT roundtrip (the faster rank-1 Gram
+        # on one H100, PERF.md)
         m1 = self.filt.shape[1]
         self._band_rows = self._band_cols = None
         self._use_band = False
@@ -331,111 +272,6 @@ class DistributedTVDeconv2D(IterativeSolver):
         )(self.y)
         self.atb = atb
 
-        # ---- per-shard fused Pallas engine selection (VERDICT r2 task 1):
-        # the single-chip mega2/sweep kernels run INSIDE shard_map with
-        # R-row (= one tile) ppermute halos and shard-aware global masks, so
-        # multi-chip per-shard compute matches the single-chip flagship.
-        self._mega_B = self._mega_C = self._mega_F = self._atb_ext = None
-        self._megar_Bf = self._megar_Cf = self._megar_Ba = self._megar_Ca = None
-        self._sp_engine, self._sp_r = "", 0
-        self._pallas_interpret = use_pallas == "interpret"
-        # (the use_pallas=True-on-CPU guard already ran before mode dispatch)
-        if _pallas_on(use_pallas) and not jnp.issubdtype(self.filt.dtype, jnp.complexfloating):
-            from pycsou_tpu.kernels.tv import MEGA_HG, make_mega2_lane_plan, make_mega_band
-
-            mega_r = sweep_r = 0
-            if self._use_band and W % 128 == 0 and W >= 384:
-                u1 = np.asarray(fac[0][:, 0], np.float64)
-                v1 = np.asarray(fac[1][:, 0], np.float64)
-                K1r, K1c = u1.size - 1, v1.size - 1
-                if K1r <= MEGA_HG - 1 and 2 * K1c <= 128:
-                    for r in (32, 16):
-                        if h_local % r == 0 and h_local >= r and (r + 8) * W * 4 <= 820_000:
-                            mega_r = r
-                            break
-            if mega_r:
-                self._sp_engine, self._sp_r = "megasp", mega_r
-                self._mega_B = jnp.asarray(make_mega_band(np.convolve(u1, u1[::-1]), r=mega_r))
-                Cm, Fm = make_mega2_lane_plan(v1, W)
-                self._mega_C = jnp.asarray(Cm)
-                self._mega_F = jnp.asarray(Fm)
-                self._atb_ext = self._make_ext(self.atb, mega_r)
-            else:
-                # megarsp: any rank <= 4 PSF rides the fused
-                # forward+adjoint-sweep stencil per shard (kernels/tvr.py);
-                # needs R = 32 >= 2*HG so one R-row halo tile covers the
-                # two-stage pipeline's compute reach into a neighbour
-                megar_plan = None
-                if fac is not None and h_local % 32 == 0:
-                    from pycsou_tpu.kernels.tvr import make_megar_plan
-
-                    megar_plan = make_megar_plan(fac[0], fac[1], (h_local + 64, W))
-                    if megar_plan is not None and megar_plan[4] != 32:
-                        megar_plan = None
-                if megar_plan is not None:
-                    self._sp_engine, self._sp_r = "megarsp", 32
-                    (self._megar_Bf, self._megar_Cf, self._megar_Ba,
-                     self._megar_Ca, _) = megar_plan
-                    self._atb_ext = self._make_ext(self.atb, 32)
-                else:
-                    sweep_r = _pick_sweepsp_rows(h_local, W)
-                    if sweep_r:
-                        self._sp_engine, self._sp_r = "sweepsp", sweep_r
-
-    # -- halo-extension helpers (per-shard Pallas engines) -------------------
-    def _ext_local(self, a, R: int):
-        """(h_loc + 2R, W) halo-extended local block: R rows from the
-        previous device on top, R from the next below; ``ppermute`` zeros at
-        the global edges — exactly the Gram's zero boundary condition."""
-        top, bot = self._halos_local(a, R)
-        return jnp.concatenate([top, a, bot], axis=0)
-
-    def _make_ext(self, arr, R: int):
-        """Halo-extend a row-sharded GLOBAL array once (init-time; e.g. the
-        iteration-constant A^H y)."""
-        P = PartitionSpec
-        ax = self.axis_name
-        return jax.jit(
-            jax.shard_map(
-                lambda a: self._ext_local(a, R),
-                mesh=self.mesh,
-                in_specs=P(ax, None),
-                out_specs=P(ax, None),
-                check_vma=False,
-            )
-        )(arr)
-
-    def _corr_local(self, x_loc):
-        """x2-scaled row-Gram edge corrections from the device's own local
-        edge rows (only devices holding the global first/last tiles ever
-        have theirs APPLIED — the kernel's global-row flags gate it)."""
-        from pycsou_tpu.kernels.band import gram_band_cols, gram_chanconv_cols
-        from pycsou_tpu.kernels.tv import MEGA_HG
-
-        lead_r, L_r, lead_c, L_c = self._band_meta
-        cb0, cb1, cEt, cEb = self._band_cols
-        rEt, rEb = self._band_rows[2], self._band_rows[3]
-        W = x_loc.shape[1]
-        if rEt is None:  # K == 1 row factor: no 'same'-crop corrections
-            return jnp.zeros((2 * MEGA_HG, W), x_loc.dtype)
-        Ec = None if cEt is None else (cEt, cEb)
-        if self._band_cols_chan is not None:
-            w_top = gram_chanconv_cols(x_loc[:L_r], self._band_cols_chan, Ec, L_c)
-            w_bot = gram_chanconv_cols(x_loc[-L_r:], self._band_cols_chan, Ec, L_c)
-        else:
-            gp = ((cb0, cb1, lead_c), cEt, cEb, L_c)
-            w_top = gram_band_cols(x_loc[:L_r], gp)
-            w_bot = gram_band_cols(x_loc[-L_r:], gp)
-        prec = jax.lax.Precision.HIGHEST
-        K1 = rEt.shape[0]  # rEt is not None past the early return above
-        top = 2.0 * jnp.matmul(rEt, w_top, precision=prec)
-        bot = 2.0 * jnp.matmul(rEb, w_bot, precision=prec)
-        return (
-            jnp.zeros((2 * MEGA_HG, W), x_loc.dtype)
-            .at[:K1].set(top)
-            .at[2 * MEGA_HG - K1 :].set(bot)
-        )
-
     # legacy attribute API (round-1 callers)
     @property
     def x0(self):
@@ -460,12 +296,11 @@ class DistributedTVDeconv2D(IterativeSolver):
     # -- one PDS iteration on LOCAL blocks (inside shard_map) --------------
     def _data_grad(self, x, atb_loc, y_loc=None):
         """Per-shard data-term gradient ``2 (A^H A x - A^H y)`` on the
-        fastest available route — shared by the XLA-chain and sweepsp
-        engines (band > fused FFT Gram > forward+adjoint)."""
+        fastest available route (band > fused FFT Gram > forward+adjoint)."""
         ax = self.axis_name
         filt = self.filt
         if self._use_band:
-            # rank-1 banded Gram: four MXU matmul passes, NO FFT (fastest)
+            # rank-1 banded Gram: four matmul passes, NO FFT (fastest)
             lead_r, L_r, lead_c, L_c = self._band_meta
             rb0, rb1, rEt, rEb = self._band_rows
             cb0, cb1, cEt, cEb = self._band_cols
@@ -514,163 +349,14 @@ class DistributedTVDeconv2D(IterativeSolver):
         z_new = rho * z_temp + (1 - rho) * z
         return x_new, z_new
 
-    # -- per-shard fused Pallas iterations (VERDICT r2 task 1) ---------------
-    def _halos_local(self, a, R: int):
-        """(top, bottom) (R, W) neighbour-row blocks: R rows from the
-        previous device and R from the next (``ppermute`` zeros at the
-        global edges — exactly the Gram's zero boundary condition)."""
-        ax = self.axis_name
-        n = self.mesh.devices.size
-        top = jax.lax.ppermute(a[-R:], ax, [(i, i + 1) for i in range(n - 1)])
-        bot = jax.lax.ppermute(a[:R], ax, [(i + 1, i) for i in range(n - 1)])
-        return top, bot
-
-    def _local_step_megasp(self, x, z0, z1, atb_ext):
-        """One full PDS iteration with BOTH Gram directions fused in-kernel
-        per shard: R-row halo blocks of (x, z0, z1) ride ``ppermute`` and
-        are stitched in-VMEM by the shard-aware mega2 kernel
-        (kernels/tv.py tv_pds_mega2_shard_step) — no halo-extended iterate
-        array ever touches HBM."""
-        from pycsou_tpu.kernels.tv import tv_pds_mega2_shard_step
-
-        ax = self.axis_name
-        R = self._sp_r
-        H, W = self.shape
-        h_loc = H // self.mesh.devices.size
-        off = (jax.lax.axis_index(ax) * h_loc - R).astype(jnp.int32).reshape(1)
-        xt, xb = self._halos_local(x, R)
-        z0t, z0b = self._halos_local(z0, R)
-        z1t, z1b = self._halos_local(z1, R)
-        corr = self._corr_local(x)
-        xn, z0n, z1n, st = tv_pds_mega2_shard_step(
-            x, z0, z1, atb_ext, (xt, xb, z0t, z0b, z1t, z1b), corr,
-            self._mega_B, self._mega_C, self._mega_F,
-            off, H_global=H, mega_r=R, interpret=self._pallas_interpret,
-            tau=self.tau, sigma=self.sigma, rho=self.rho, lam=self.lam,
-            nonneg=self.nonneg, iso=self.iso,
-        )
-        st = jax.lax.psum(st[0, :6], ax)
-        return xn, z0n, z1n, st
-
-    def _local_step_megarsp(self, x, z0, z1, atb_ext):
-        """One full rank-r PDS iteration fully fused per shard: the
-        forward+adjoint sweeps AND the stencil run in one kernel pass
-        (kernels/tvr.py tv_pds_megar_shard_step) with R-row ppermute halo
-        blocks stitched in-VMEM — the rank >= 2 analogue of
-        :meth:`_local_step_megasp`."""
-        from pycsou_tpu.kernels.tvr import tv_pds_megar_shard_step
-
-        ax = self.axis_name
-        R = self._sp_r
-        H, W = self.shape
-        h_loc = H // self.mesh.devices.size
-        off = (jax.lax.axis_index(ax) * h_loc - R).astype(jnp.int32).reshape(1)
-        xt, xb = self._halos_local(x, R)
-        z0t, z0b = self._halos_local(z0, R)
-        z1t, z1b = self._halos_local(z1, R)
-        xn, z0n, z1n, st = tv_pds_megar_shard_step(
-            x, z0, z1, atb_ext, (xt, xb, z0t, z0b, z1t, z1b),
-            self._megar_Bf, self._megar_Cf, self._megar_Ba, self._megar_Ca,
-            off, H_global=H, mega_r=R, interpret=self._pallas_interpret,
-            tau=self.tau, sigma=self.sigma, rho=self.rho, lam=self.lam,
-            nonneg=self.nonneg, iso=self.iso,
-        )
-        st = jax.lax.psum(st[0, :6], ax)
-        return xn, z0n, z1n, st
-
-    def _local_step_sweepsp(self, x, z0, z1, atb_loc, y_loc, m_loc=None):
-        """Sharded Gram (banded / FFT / forward+adjoint — ANY mode, or the
-        elementwise diagonal mask Gram) for the data-term gradient, then the
-        fused stencil sweep kernel per shard with R-row halos of
-        (x, g, z0, z1)."""
-        from pycsou_tpu.kernels.tv import tv_pds_sweep_shard_step
-
-        ax = self.axis_name
-        R = self._sp_r
-        H, W = self.shape
-        h_loc = H // self.mesh.devices.size
-        if m_loc is not None:  # diagonal (sampling) Gram: elementwise
-            grad = 2.0 * (m_loc * x - atb_loc)
-        else:
-            grad = self._data_grad(x, atb_loc, y_loc)
-        off = (jax.lax.axis_index(ax) * h_loc - R).astype(jnp.int32).reshape(1)
-        xt, xb = self._halos_local(x, R)
-        gt, gb = self._halos_local(grad, R)
-        z0t, z0b = self._halos_local(z0, R)
-        z1t, z1b = self._halos_local(z1, R)
-        xn, z0n, z1n, st = tv_pds_sweep_shard_step(
-            x, grad, z0, z1, (xt, xb, gt, gb, z0t, z0b, z1t, z1b), off,
-            H_global=H, R=R, interpret=self._pallas_interpret,
-            tau=self.tau, sigma=self.sigma, rho=self.rho, lam=self.lam,
-            nonneg=self.nonneg, iso=self.iso,
-        )
-        st = jax.lax.psum(st[0, :6], ax)
-        return xn, z0n, z1n, st
-
     # -- IterativeSolver protocol -------------------------------------------
     def initial_state(self):
         H, W = self.shape
         x0 = jax.device_put(jnp.zeros((H, W), jnp.float32), NamedSharding(self.mesh, self._spec_x()))
-        if self._sp_engine:
-            # duals as SEPARATE arrays (kernel I/O efficiency, see opt/tv.py)
-            # + the kernel-epilogue metric partial sums
-            zs = NamedSharding(self.mesh, self._spec_x())
-            return {
-                "x": x0,
-                "z0": jax.device_put(jnp.zeros((H, W), jnp.float32), zs),
-                "z1": jax.device_put(jnp.zeros((H, W), jnp.float32), zs),
-                "_stats": jnp.zeros((6,), jnp.float32),
-            }
         z0 = jax.device_put(jnp.zeros((2, H, W), jnp.float32), NamedSharding(self.mesh, self._spec_z()))
         return {"x": x0, "z": z0}
 
     def step(self, state):
-        P = PartitionSpec
-        ax = self.axis_name
-        if self._sp_engine in ("megasp", "megarsp"):
-            local = (
-                self._local_step_megasp
-                if self._sp_engine == "megasp"
-                else self._local_step_megarsp
-            )
-            smapped = jax.shard_map(
-                local,
-                mesh=self.mesh,
-                in_specs=(self._spec_x(),) * 3 + (self._spec_x(),),
-                out_specs=(self._spec_x(),) * 3 + (P(),),
-                check_vma=False,
-            )
-            x, z0, z1, st = smapped(state["x"], state["z0"], state["z1"], self._atb_ext)
-            return {"x": x, "z0": z0, "z1": z1, "_stats": st}
-        if self._sp_engine == "sweepsp" and self.mask is not None:
-            smapped = jax.shard_map(
-                lambda x, z0, z1, m, t: self._local_step_sweepsp(
-                    x, z0, z1, t, None, m_loc=m
-                ),
-                mesh=self.mesh,
-                in_specs=(self._spec_x(),) * 5,
-                out_specs=(self._spec_x(),) * 3 + (P(),),
-                check_vma=False,
-            )
-            x, z0, z1, st = smapped(
-                state["x"], state["z0"], state["z1"], self.mask, self.atb
-            )
-            return {"x": x, "z0": z0, "z1": z1, "_stats": st}
-        if self._sp_engine == "sweepsp":
-            third = self.atb if (self._use_band or self._use_gram) else self.y
-            smapped = jax.shard_map(
-                lambda x, z0, z1, t: self._local_step_sweepsp(
-                    x, z0, z1,
-                    t if (self._use_band or self._use_gram) else None,
-                    None if (self._use_band or self._use_gram) else t,
-                ),
-                mesh=self.mesh,
-                in_specs=(self._spec_x(),) * 4,
-                out_specs=(self._spec_x(),) * 3 + (P(),),
-                check_vma=False,
-            )
-            x, z0, z1, st = smapped(state["x"], state["z0"], state["z1"], third)
-            return {"x": x, "z0": z0, "z1": z1, "_stats": st}
         if self.mask is not None:  # diagonal-Gram XLA chain
             smapped = jax.shard_map(
                 lambda x, z, m, t: self._local_step(x, z, t, m_loc=m),
@@ -701,38 +387,9 @@ class DistributedTVDeconv2D(IterativeSolver):
             x, z = smapped(state["x"], state["z"], self.y)
         return {"x": x, "z": z}
 
-    # -- kernel-epilogue metrics (zero extra HBM passes + one tiny psum) -----
-    def metric(self, old, new):
-        if self._sp_engine and "_stats" in new:
-            from pycsou_tpu.opt.tv import TVDeconvolution
-
-            st = new["_stats"]
-            return TVDeconvolution._rel_from_stats(st[0], st[1])
-        return super().metric(old, new)
-
-    def metrics(self, old, new):
-        if self._sp_engine and "_stats" in new:
-            from pycsou_tpu.opt.tv import TVDeconvolution
-
-            st = new["_stats"]
-            return {
-                "x": TVDeconvolution._rel_from_stats(st[0], st[1]),
-                "z0": TVDeconvolution._rel_from_stats(st[2], st[3]),
-                "z1": TVDeconvolution._rel_from_stats(st[4], st[5]),
-            }
-        return super().metrics(old, new)
-
     # -- legacy fixed-iteration API (benchmarks) ------------------------------
     def run(self, n_iters: int, x=None, z=None):
-        """Run ``n_iters`` fused iterations; returns (x, z) still sharded."""
-        if self._sp_engine:
-            state = dict(self.initial_state())
-            if x is not None:
-                state["x"] = x
-            if z is not None:
-                state["z0"], state["z1"] = z[0], z[1]
-            state = self.run_fixed(n_iters, state=self._wrap_state(state))
-            return state["x"], jnp.stack([state["z0"], state["z1"]], axis=0)
+        """Run ``n_iters`` iterations; returns (x, z) still sharded."""
         state = None
         if x is not None or z is not None:
             init = self.initial_state()
@@ -774,7 +431,7 @@ class DistributedTVDeconv2D(IterativeSolver):
 class BatchedDistributedTVDeconv2D(IterativeSolver):
     r"""Batched TV deconvolution on a TRUE 2-D device mesh ``(dp, sp)``:
     a batch of B images is data-parallel over ``dp`` while each image is
-    row-sharded over ``sp`` — the dp x sp composition the pod-scale
+    row-sharded over ``sp`` — the dp x sp composition a cluster-scale
     deployment uses (scenario batches x spatial decomposition).
 
     Per iteration each device touches only its (B/dp, H/sp, W) brick; spatial
@@ -837,10 +494,6 @@ class BatchedDistributedTVDeconv2D(IterativeSolver):
             jnp.zeros(shape, dtype),
             lam,
             nonneg=nonneg,
-            # Batched only calls inner._local_step (the XLA chain); skip the
-            # per-shard Pallas engine setup (plans, halo-extended atb) it
-            # would never use
-            use_pallas=False,
             mesh=sp_mesh,
             tau=tau,
             rho=rho,
@@ -922,16 +575,12 @@ class Spatial2DTVDeconv2D(IterativeSolver):
 
     For very wide meshes a 1-D row split leaves blocks thinner than the
     kernel halo; the 2-D split keeps blocks square-ish so halo traffic per
-    device scales as the block *perimeter*.  Two engines (VERDICT r3 task 2):
+    device scales as the block *perimeter*.  The data term runs as
+    per-axis banded Gram passes with (K-1)-wide ``ppermute`` halos along
+    BOTH mesh axes: the rank-1 autocorrelation band, or for rank 2-4 PSFs
+    the per-rank forward-then-adjoint composition.
 
-    * ``megar2d`` (default on TPU, any rank <= 4 PSF): the single-chip fused
-      forward-sweep + adjoint-sweep + stencil kernel (kernels/tvr.py) runs
-      per shard with 128-lane column halos and 32-row row halos stitched
-      in-VMEM — the sp0 x sp1 analogue of the 1-D mesh's megarsp engine;
-    * pure-XLA banded chain (rank-1 PSF only): per-axis banded MXU Gram
-      passes with (K-1)-wide ``ppermute`` halos along BOTH mesh axes.
-
-    Zero FFTs, zero global collectives inside an iteration either way.
+    Zero FFTs, zero global collectives inside an iteration.
     Same mathematics as :class:`DistributedTVDeconv2D` (Condat-Vu PDS,
     reference update rule /root/reference/pycsou/opt/proxalgs.py:343-355);
     first-class ``IterativeSolver`` (stopping metric, history, checkpoint).
@@ -958,15 +607,6 @@ class Spatial2DTVDeconv2D(IterativeSolver):
     _band_meta: tuple = static_field(default=None)  # (lead_r, L_r, lead_c, L_c)
     _y2: float = static_field(default=0.0)
     rank: int = static_field(default=1)
-    # per-shard fused engine ("megar2d") or "" = pure-XLA banded chain
-    _sp_engine: str = static_field(default="")
-    _sp_r: int = static_field(default=0)
-    _pallas_interpret: bool = static_field(default=False)
-    _megar_Bf: jax.Array = None
-    _megar_Cf: jax.Array = None
-    _megar_Ba: jax.Array = None
-    _megar_Ca: jax.Array = None
-    _atb_ext: jax.Array = None  # fully halo-extended A^H y (megar2d)
     # per-rank forward/adjoint band plans (atb init + rank >= 2 objective)
     _rank_plans: tuple = static_field(default=None)
 
@@ -985,7 +625,6 @@ class Spatial2DTVDeconv2D(IterativeSolver):
         min_iter: int = 10,
         accuracy_threshold: float = 1e-6,
         verbose: Optional[int] = None,
-        use_pallas: str = "auto",
         isotropic: bool = True,
         mask=None,
     ):
@@ -1016,7 +655,6 @@ class Spatial2DTVDeconv2D(IterativeSolver):
             # DistributedTVDeconv2D's mask mode.  grad = 2(mask*x - atb) is
             # elementwise per shard (no Gram halos at all); the gradient
             # stencil's 1-pixel halos ride the existing sharded_grad2d_2d.
-            # XLA chain only (no 2-D-mesh pallas mask engine yet).
             if filt is not None:
                 raise ValueError(
                     "mask mode models a diagonal sampling forward operator; "
@@ -1039,10 +677,6 @@ class Spatial2DTVDeconv2D(IterativeSolver):
             self._band_rows = self._band_cols = None
             self._rank_plans = None
             self._y2 = 0.0
-            self._sp_engine, self._sp_r = "", 0
-            self._pallas_interpret = use_pallas == "interpret"
-            self._megar_Bf = self._megar_Cf = self._megar_Ba = self._megar_Ca = None
-            self._atb_ext = None
             return
 
         filt = jnp.asarray(filt, dtype)
@@ -1092,51 +726,6 @@ class Spatial2DTVDeconv2D(IterativeSolver):
             self._band_rows, lead_r, L_r = _jn(make_gram_band(us[:, 0], H))
             self._band_cols, lead_c, L_c = _jn(make_gram_band(vs[:, 0], W))
             self._band_meta = (lead_r, L_r, lead_c, L_c)
-
-        # ---- per-shard fused megar2d engine (VERDICT r3 task 2) ----------
-        self._megar_Bf = self._megar_Cf = self._megar_Ba = self._megar_Ca = None
-        self._atb_ext = None
-        self._sp_engine, self._sp_r = "", 0
-        self._pallas_interpret = use_pallas == "interpret"
-        if use_pallas is True and jax.default_backend() in ("cpu",):
-            # a compiled (non-interpret) Mosaic kernel cannot lower on the
-            # CPU backend — fail at construction with the fix named instead
-            # of at compile time with a Mosaic internal error (ADVICE r4)
-            raise ValueError(
-                "use_pallas=True forces the compiled TPU engine but the "
-                "active backend is CPU; pass use_pallas='interpret' for "
-                "CPU meshes or leave the default 'auto'"
-            )
-        pallas_on = (
-            use_pallas == "interpret"
-            or bool(use_pallas is True)
-            or (use_pallas == "auto" and jax.default_backend() not in ("cpu",))
-        )
-        if (
-            pallas_on
-            and not jnp.issubdtype(filt.dtype, jnp.complexfloating)
-            and h_loc % 32 == 0
-            and w_loc % 128 == 0
-            and m1 <= 128  # the 128-lane halo must cover one iteration's
-            # column reach (gram m1 - 1 plus the stencil's 1)
-            and (n1 > 1 or w_loc >= 384)  # n1 == 1 runs the un-extended
-            # 1-D kernel path, whose width gate is the raw w_loc
-        ):
-            from pycsou_tpu.kernels.tvr import make_megar_plan
-
-            w_ext = w_loc + (256 if n1 > 1 else 0)
-            plan = make_megar_plan(fac[0], fac[1], (h_loc + 64, max(w_ext, 384)))
-            if plan is not None and plan[4] == 32:
-                self._sp_engine, self._sp_r = "megar2d", 32
-                (self._megar_Bf, self._megar_Cf, self._megar_Ba,
-                 self._megar_Ca, _) = plan
-        if rank > 1 and not self._sp_engine:
-            raise ValueError(
-                f"rank-{rank} PSF on the 2-D mesh needs the fused megar2d "
-                "engine (TPU, h_loc % 32 == 0, w_loc % 128 == 0, taps within "
-                "the sweep gates); this configuration does not qualify — use "
-                "DistributedTVDeconv2D (1-D row sharding) instead"
-            )
 
         spec_x = NamedSharding(self.mesh, PartitionSpec(self.ax_r, self.ax_c))
         self.y = jax.device_put(jnp.asarray(y, dtype), spec_x)
@@ -1188,49 +777,6 @@ class Spatial2DTVDeconv2D(IterativeSolver):
         )
         self.atb = atb_fn(self.y)
         self._y2 = float(jnp.vdot(self.y, self.y))
-        if self._sp_engine:
-            R = self._sp_r
-            if n1 == 1:
-                # row-halo extension only (the 1-D kernel path)
-                local_ext = lambda a: self._row_ext_local(a, R)
-            else:
-                local_ext = lambda a: self._row_ext_local(self._lane_ext_local(a), R)
-            ext_fn = jax.jit(
-                jax.shard_map(
-                    local_ext,
-                    mesh=self.mesh,
-                    in_specs=P(self.ax_r, self.ax_c),
-                    out_specs=P(self.ax_r, self.ax_c),
-                    check_vma=False,
-                )
-            )
-            self._atb_ext = ext_fn(self.atb)
-
-    # -- halo helpers (megar2d engine; all called INSIDE shard_map) ----------
-    def _lane_ext_local(self, a):
-        """(h, w_loc + 256) lane-halo-extended local block: one 128-lane
-        chunk from each column neighbour (``ppermute`` zeros at the global
-        column edges = the sweeps' zero boundary)."""
-        ac = self.ax_c
-        n1 = self.mesh.devices.shape[1]
-        left = jax.lax.ppermute(a[:, -128:], ac, [(i, i + 1) for i in range(n1 - 1)])
-        right = jax.lax.ppermute(a[:, :128], ac, [(i + 1, i) for i in range(n1 - 1)])
-        return jnp.concatenate([left, a, right], axis=1)
-
-    def _row_halos_local(self, a, R: int):
-        """(top, bottom) (R, w) row-halo blocks along ``ax_r``.  Taking them
-        from LANE-EXTENDED blocks carries the diagonal corners: the row
-        neighbour's lane halo came from ITS column neighbour — this
-        device's diagonal."""
-        ar = self.ax_r
-        n0 = self.mesh.devices.shape[0]
-        top = jax.lax.ppermute(a[-R:], ar, [(i, i + 1) for i in range(n0 - 1)])
-        bot = jax.lax.ppermute(a[:R], ar, [(i + 1, i) for i in range(n0 - 1)])
-        return top, bot
-
-    def _row_ext_local(self, a, R: int):
-        top, bot = self._row_halos_local(a, R)
-        return jnp.concatenate([top, a, bot], axis=0)
 
     # -- sharding specs ------------------------------------------------------
     def _spec_x(self):
@@ -1247,73 +793,9 @@ class Spatial2DTVDeconv2D(IterativeSolver):
         g_cols = ((cb0, cb1, lead_c), cEt, cEb, L_c)
         return g_rows, g_cols
 
-    # -- per-shard fused megar2d iteration (inside shard_map) ----------------
-    def _local_step_megar2d(self, x, z0, z1, atb_ext):
-        """One full rank-r PDS iteration fused per shard on the 2-D mesh:
-        lane halos ride ``ppermute`` along sp1, row halos (of the
-        lane-extended blocks, corners included) along sp0, and the
-        forward+adjoint sweeps + stencil run in one kernel pass
-        (kernels/tvr.py tv_pds_megar_shard2d_step)."""
-        from pycsou_tpu.kernels.tvr import (
-            tv_pds_megar_shard_step,
-            tv_pds_megar_shard2d_step,
-        )
-
-        ar, ac = self.ax_r, self.ax_c
-        R = self._sp_r
-        H, W = self.shape
-        n0, n1 = self.mesh.devices.shape
-        h_loc, w_loc = H // n0, W // n1
-        if n1 == 1:
-            # columns unsharded: lane halos would be all-zero machinery —
-            # take the 1-D (row-halo-only) kernel path, which io-aliases
-            # x/z0/z1 in place (the lane-ext path cannot: ext inputs and
-            # core outputs differ in shape)
-            xt, xb = self._row_halos_local(x, R)
-            z0t, z0b = self._row_halos_local(z0, R)
-            z1t, z1b = self._row_halos_local(z1, R)
-            off = jnp.stack(
-                [jax.lax.axis_index(ar) * h_loc - R, jnp.zeros((), jnp.int32)]
-            ).astype(jnp.int32)
-            xn, z0n, z1n, st = tv_pds_megar_shard_step(
-                x, z0, z1, atb_ext, (xt, xb, z0t, z0b, z1t, z1b),
-                self._megar_Bf, self._megar_Cf, self._megar_Ba, self._megar_Ca,
-                off, H_global=H, mega_r=R, interpret=self._pallas_interpret,
-                tau=self.tau, sigma=self.sigma, rho=self.rho, lam=self.lam,
-                nonneg=self.nonneg, iso=self.iso,
-            )
-            st = jax.lax.psum(jax.lax.psum(st[0, :6], ar), ac)
-            return xn, z0n, z1n, st
-        xe = self._lane_ext_local(x)
-        z0e = self._lane_ext_local(z0)
-        z1e = self._lane_ext_local(z1)
-        xt, xb = self._row_halos_local(xe, R)
-        z0t, z0b = self._row_halos_local(z0e, R)
-        z1t, z1b = self._row_halos_local(z1e, R)
-        off = jnp.stack(
-            [
-                jax.lax.axis_index(ar) * h_loc - R,
-                jax.lax.axis_index(ac) * w_loc - 128,
-            ]
-        ).astype(jnp.int32)
-        xn, z0n, z1n, st = tv_pds_megar_shard2d_step(
-            xe, z0e, z1e, atb_ext, (xt, xb, z0t, z0b, z1t, z1b),
-            self._megar_Bf, self._megar_Cf, self._megar_Ba, self._megar_Ca,
-            off, H_global=H, W_global=W, mega_r=R,
-            interpret=self._pallas_interpret,
-            tau=self.tau, sigma=self.sigma, rho=self.rho, lam=self.lam,
-            nonneg=self.nonneg, iso=self.iso,
-        )
-        st = jax.lax.psum(jax.lax.psum(st[0, :6], ar), ac)
-        return xn, z0n, z1n, st
-
     # -- one PDS iteration on LOCAL blocks (inside a 2-D shard_map) ---------
     def _local_step(self, x, z, atb_loc, m_loc=None):
-        from pycsou_tpu.parallel.spatial import (
-            sharded_grad2d_2d,
-            sharded_grad2d_adjoint_2d,
-            sharded_sepgram_rank1_2d,
-        )
+        from pycsou_tpu.parallel.spatial import sharded_grad2d_2d, sharded_grad2d_adjoint_2d
 
         tau, sigma, rho, lam = self.tau, self.sigma, self.rho, self.lam
         ar, ac = self.ax_r, self.ax_c
@@ -1321,8 +803,7 @@ class Spatial2DTVDeconv2D(IterativeSolver):
         if m_loc is not None:  # diagonal (sampling) Gram: elementwise
             grad = 2.0 * (m_loc * x - atb_loc)
         else:
-            g_rows, g_cols = self._gplans()
-            grad = 2.0 * (sharded_sepgram_rank1_2d(x, g_rows, g_cols, ar, ac) - atb_loc)
+            grad = 2.0 * (self._gram_local(x) - atb_loc)
         x_temp = x - tau * grad - tau * sharded_grad2d_adjoint_2d(z, ar, ac)
         if self.nonneg:
             x_temp = jnp.maximum(x_temp, 0.0)
@@ -1338,29 +819,10 @@ class Spatial2DTVDeconv2D(IterativeSolver):
     def initial_state(self):
         H, W = self.shape
         x0 = jax.device_put(jnp.zeros((H, W), jnp.float32), NamedSharding(self.mesh, self._spec_x()))
-        if self._sp_engine:
-            zs = NamedSharding(self.mesh, self._spec_x())
-            return {
-                "x": x0,
-                "z0": jax.device_put(jnp.zeros((H, W), jnp.float32), zs),
-                "z1": jax.device_put(jnp.zeros((H, W), jnp.float32), zs),
-                "_stats": jnp.zeros((6,), jnp.float32),
-            }
         z0 = jax.device_put(jnp.zeros((2, H, W), jnp.float32), NamedSharding(self.mesh, self._spec_z()))
         return {"x": x0, "z": z0}
 
     def step(self, state):
-        P = PartitionSpec
-        if self._sp_engine:
-            smapped = jax.shard_map(
-                self._local_step_megar2d,
-                mesh=self.mesh,
-                in_specs=(self._spec_x(),) * 4,
-                out_specs=(self._spec_x(),) * 3 + (P(),),
-                check_vma=False,
-            )
-            x, z0, z1, st = smapped(state["x"], state["z0"], state["z1"], self._atb_ext)
-            return {"x": x, "z0": z0, "z1": z1, "_stats": st}
         if self.mask is not None:  # diagonal-Gram (sampling) chain
             smapped = jax.shard_map(
                 lambda x, z, m, t: self._local_step(x, z, t, m_loc=m),
@@ -1379,37 +841,8 @@ class Spatial2DTVDeconv2D(IterativeSolver):
         x, z = smapped(state["x"], state["z"], self.atb)
         return {"x": x, "z": z}
 
-    # -- kernel-epilogue metrics (megar2d; zero extra HBM passes) ------------
-    def metric(self, old, new):
-        if self._sp_engine and "_stats" in new:
-            from pycsou_tpu.opt.tv import TVDeconvolution
-
-            st = new["_stats"]
-            return TVDeconvolution._rel_from_stats(st[0], st[1])
-        return super().metric(old, new)
-
-    def metrics(self, old, new):
-        if self._sp_engine and "_stats" in new:
-            from pycsou_tpu.opt.tv import TVDeconvolution
-
-            st = new["_stats"]
-            return {
-                "x": TVDeconvolution._rel_from_stats(st[0], st[1]),
-                "z0": TVDeconvolution._rel_from_stats(st[2], st[3]),
-                "z1": TVDeconvolution._rel_from_stats(st[4], st[5]),
-            }
-        return super().metrics(old, new)
-
     def run(self, n_iters: int, x=None, z=None):
         """Fixed-iteration API (benchmarks); returns (x, z) still sharded."""
-        if self._sp_engine:
-            state = dict(self.initial_state())
-            if x is not None:
-                state["x"] = x
-            if z is not None:
-                state["z0"], state["z1"] = z[0], z[1]
-            state = self.run_fixed(n_iters, state=self._wrap_state(state))
-            return state["x"], jnp.stack([state["z0"], state["z1"]], axis=0)
         state = None
         if x is not None or z is not None:
             init = self.initial_state()

@@ -1,11 +1,11 @@
 """Spatial domain decomposition: halo-exchanged stencils and overlap-save
 convolution for row-sharded images.
 
-This is the TPU-native analogue of "scale the big dimension" (SURVEY §5):
+This is the analogue of "scale the big dimension" (SURVEY §5):
 the image/volume is partitioned across the mesh along its leading axis, and
 
 * finite-difference stencils exchange ONE halo row with ring neighbours via
-  ``lax.ppermute`` (ICI traffic: O(W) bytes per step);
+  ``lax.ppermute`` (O(W) bytes between devices per step);
 * FFT convolution becomes overlap-save: exchange ``kernel//2`` halo rows,
   convolve locally, crop — bitwise equal to the global zero-boundary 'same'
   convolution;
@@ -263,11 +263,11 @@ def sharded_conv2d_gram(block: jax.Array, filt: jax.Array, axis_name: str, acorr
 def sharded_sepgram_rank1(block: jax.Array, g_rows, g_cols, axis_name: str, g_cols_chan=None) -> jax.Array:
     """Row-sharded rank-1 separable Gram ``A^H A x`` — NO FFT anywhere.
 
-    The multi-chip twin of ``ops.conv.SeparableConvGram2D._apply_fast2``:
+    The multi-device twin of ``ops.conv.SeparableConvGram2D._apply_fast2``:
     the column-axis 1-D Gram is purely local (``kernels.band.gram_band_cols``,
     W unsharded), the row-axis Gram is one banded pass over the
     (K-1)-row halo-extended block (same halo width as FFT overlap-save, but
-    the local work is two 128x128 MXU matmuls instead of an FFT roundtrip)
+    the local work is two 128x128 matmuls instead of an FFT roundtrip)
     with the thin edge-correction matmuls masked onto the first/last device.
 
     ``g_rows`` / ``g_cols``: ``make_gram_band`` plans of the row/col factor

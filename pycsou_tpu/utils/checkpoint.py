@@ -3,8 +3,8 @@
 The reference's only 'recovery' story is warm-starting from x0 in memory
 (SURVEY §5 — nothing is ever persisted).  Here any solver state — iterates,
 duals, momentum terms, PRNG keys, P^2 quantile states — is a pytree and
-round-trips through Orbax, so long solves on preemptible TPU pods can resume
-mid-run.
+round-trips through Orbax, so long solves on preemptible machines can
+resume mid-run.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """On-device spectral estimation: power iteration and Lanczos.
 
-TPU-native replacement for the reference's host-side ARPACK calls
+Replacement for the reference's host-side ARPACK calls
 (/root/reference/pycsou/core/linop.py:178-321).  The hot loop — repeated
 matvec/rmatvec — runs entirely inside a jitted ``lax.while_loop`` /
 ``lax.fori_loop`` on device; only the tiny (m x m) tridiagonal eigenproblem is
@@ -223,7 +223,7 @@ class _FoldedOp(_SpectralWrapOp):
     """``v -> c v - A v`` for a self-adjoint PSD ``A``: its LARGEST eigenvalue
     is ``c - lambda_min(A)`` — the spectrum-fold trick that makes the
     smallest eigenvalue a *dominant* one, which Lanczos/power iteration find
-    reliably (TPU-native stand-in for ARPACK shift-invert 'SM',
+    reliably (on-device stand-in for ARPACK shift-invert 'SM',
     reference linop.py:178-277)."""
 
     def apply(self, v):

@@ -1,8 +1,8 @@
 """Shape utilities for operators on arbitrary nd-array domains.
 
 The reference flattens everything to 1-D vectors of length ``dim``
-(/root/reference/pycsou/core/map.py:20).  On TPU we keep natural array shapes
-(images stay 2-D so stencil/conv kernels tile onto the VPU/MXU); ``dim_shape``
+(reference pycsou/core/map.py:20).  Here we keep natural array shapes
+(images stay 2-D so stencil/conv passes keep their layout); ``dim_shape``
 / ``codim_shape`` are nd tuples and ``shape`` exposes the reference's
 ``(codim_size, dim_size)`` view for familiarity.
 """

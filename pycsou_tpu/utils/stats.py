@@ -1,9 +1,9 @@
 """Streaming statistics: fully vectorised P-Square quantile estimation.
 
-TPU-native equivalent of /root/reference/pycsou/util/stats.py:6-132.  The
+Equivalent of the reference's pycsou/util/stats.py:6-132.  The
 reference jit-compiles a per-coordinate Python loop with Numba (stats.py:97,
 its only compiled kernel); here the marker update is expressed as pure
-vectorised array ops over *all* coordinates at once, so it runs on the VPU
+vectorised array ops over *all* coordinates at once, so it runs on the device
 and can live inside the jitted MCMC sampling loop (no host round-trip per
 sample).
 """

@@ -4,8 +4,8 @@ Each test pins a fixed bug:
 * generic PDS/APGD states written BEFORE the in-step ``_gstats`` partial
   sums existed (old checkpoints, hand-built states) resume instead of
   raising a while_loop carry-structure mismatch,
-* ``use_pallas=True`` on a CPU backend fails at construction with the fix
-  named, not at compile time inside Mosaic.
+* the per-shard engine switch ``use_pallas`` is gone: passing it fails at
+  construction instead of being silently ignored.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -75,14 +75,14 @@ def test_apgd_resumes_pre_gstats_state():
 
 
 def test_spatial2d_use_pallas_true_on_cpu_raises():
-    """use_pallas=True forces the compiled TPU kernel; on the CPU backend the
-    constructor must raise with the 'interpret' fix named instead of dying
-    inside the Mosaic compiler (ADVICE r4)."""
+    """The per-shard fused engines (and their ``use_pallas`` switch) were
+    removed: the 2-D-mesh solver always runs the XLA halo chain, and a
+    caller still passing the switch is told so at construction."""
     from pycsou_tpu.parallel.mesh import make_mesh
     from pycsou_tpu.parallel.solvers import Spatial2DTVDeconv2D
 
     mesh = make_mesh((1, 1), axis_names=("sp0", "sp1"))
     h = np.ones((3, 3), np.float32) / 9.0
     y = jnp.ones((64, 128))
-    with pytest.raises(ValueError, match="interpret"):
+    with pytest.raises(TypeError, match="use_pallas"):
         Spatial2DTVDeconv2D((64, 128), h, y, 0.05, mesh=mesh, use_pallas=True)

@@ -2,10 +2,10 @@
 
 The reference's own PDS doc example uses ``lam * L1Norm o Gradient``
 (/root/reference/pycsou/opt/proxalgs.py:91-119) — anisotropic TV.  Every
-fused engine threads the same static ``iso`` flag into the shared
-``_dual_prox`` (kernels/tv.py), so each engine is checked against the XLA
-twin with ``iso=False``, and the expression matcher is checked against the
-generic chain (the mathematical oracle).
+solver threads the same static ``iso`` flag into the shared ``_dual_prox``
+(kernels/tv.py); each Gram route is checked against an explicit oracle with
+``iso=False``, and the expression matcher against the generic chain (the
+mathematical oracle).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,108 +19,94 @@ KW = dict(tau=0.05, sigma=0.05, rho=0.9, lam=0.05, nonneg=True, iso=False)
 def test_xla_twin_box_projection(rng):
     """iso=False clamps each dual component into [-lam, lam] independently."""
     x = jnp.asarray(rng.standard_normal((16, 16)), jnp.float32)
-    z = jnp.zeros((2, 16, 16), jnp.float32)
+    z = jnp.zeros((16, 16), jnp.float32)
     g = jnp.zeros((16, 16), jnp.float32)
-    _, z1 = tv_pds_stencil_step_xla(x, z, g, tau=0.5, sigma=5.0, rho=1.0, lam=0.05, nonneg=False, iso=False)
-    assert float(jnp.max(jnp.abs(z1))) <= 0.05 + 1e-7
+    kw = dict(tau=0.5, sigma=5.0, rho=1.0, lam=0.05, nonneg=False)
+    _, za, zb = tv_pds_stencil_step_xla(x, z, z, g, iso=False, **kw)
+    assert float(jnp.max(jnp.abs(jnp.stack([za, zb])))) <= 0.05 + 1e-7
     # and differs from the isotropic projection on a generic input
-    _, z1i = tv_pds_stencil_step_xla(x, z, g, tau=0.5, sigma=5.0, rho=1.0, lam=0.05, nonneg=False, iso=True)
-    assert not np.allclose(np.asarray(z1), np.asarray(z1i))
+    _, zai, zbi = tv_pds_stencil_step_xla(x, z, z, g, iso=True, **kw)
+    assert not np.allclose(np.asarray(jnp.stack([za, zb])), np.asarray(jnp.stack([zai, zbi])))
 
 
-@pytest.mark.parametrize("engine", ["element", "sweep"])
-def test_aniso_stencil_kernels_match_xla(rng, engine):
-    from pycsou_tpu.kernels.tv import tv_pds_stencil_step, tv_pds_stencil_step_sweep
+def _aniso_pds(shape, y, A, fuse):
+    from pycsou_tpu.func import NonNegativeOrthant, SquaredL2Loss
+    from pycsou_tpu.func.penalty import L1Norm
+    from pycsou_tpu.ops.diff import Gradient
+    from pycsou_tpu.opt import PDS
+
+    H, W = shape
+    F = SquaredL2Loss(shape, data=y)
+    return PDS(
+        shape, F=F * A if A is not None else F, G=NonNegativeOrthant(shape),
+        H=0.05 * L1Norm((2, H, W)), K=Gradient(shape), max_iter=200, fuse=fuse,
+    )
+
+
+@pytest.mark.parametrize("mode", ["denoise", "deconv"])
+def test_aniso_stencil_kernels_match_xla(rng, mode):
+    """Anisotropic TV on a 32x256 image: the fused TVDeconvolution == the
+    unfused generic PDS chain, denoising and deconvolution alike."""
+    from pycsou_tpu.ops.conv import Convolve2D
+    from pycsou_tpu.opt import TVDeconvolution
 
     H, W = 32, 256
-    x = jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
-    z = jnp.asarray(rng.standard_normal((2, H, W)), jnp.float32) * 0.1
-    z = z.at[0, -1].set(0.0).at[1, :, -1].set(0.0)
-    g = jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
-    fn = tv_pds_stencil_step if engine == "element" else tv_pds_stencil_step_sweep
-    x1, z1 = fn(x, z, g, interpret=True, **KW)
-    x2, z2 = tv_pds_stencil_step_xla(x, z, g, **KW)
-    np.testing.assert_allclose(np.asarray(x1), np.asarray(x2), rtol=3e-5, atol=3e-6)
-    np.testing.assert_allclose(np.asarray(z1), np.asarray(z2), rtol=3e-5, atol=3e-6)
+    y = jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
+    A = None
+    if mode == "deconv":
+        g = np.exp(-((np.arange(5) - 2) ** 2) / 2.0)
+        A = Convolve2D((H, W), (np.outer(g, g) / np.outer(g, g).sum()).astype(np.float32))
+    fused, generic = _aniso_pds((H, W), y, A, True), _aniso_pds((H, W), y, A, False)
+    assert isinstance(fused._fused, TVDeconvolution) and fused._fused.iso is False
+    st_f = fused.run_fixed(30)
+    st_g = generic.run_fixed(30)
+    np.testing.assert_allclose(np.asarray(st_f["x"]), np.asarray(st_g["x"]), rtol=1e-4, atol=1e-5)
+    z_f = np.stack([np.asarray(st_f["z0"]), np.asarray(st_f["z1"])])
+    np.testing.assert_allclose(z_f, np.asarray(st_g["z"]), rtol=1e-4, atol=1e-5)
+
+
+def _solver_vs_oracle(rng, filt, H, W, n_steps, rtol, atol):
+    """``n_steps`` TVDeconvolution(isotropic=False) steps == the explicit
+    oracle: data gradient 2 (A^H A x - A^H y) + the XLA stencil."""
+    from pycsou_tpu.ops.conv import Convolve2D
+    from pycsou_tpu.opt.tv import TVDeconvolution
+
+    y = jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
+    s = TVDeconvolution((H, W), y, KW["lam"], filt=filt, tau=KW["tau"],
+                        isotropic=False, max_iter=10)
+    A = Convolve2D((H, W), filt, method="fft")
+    atb = A.adjoint(y)
+    st = s._wrap_state(s.initial_state())
+    x = z0 = z1 = jnp.zeros((H, W), jnp.float32)
+    for _ in range(n_steps):
+        st = s.step(st)
+        g = 2.0 * (A.adjoint(A.apply(x)) - atb)
+        x, z0, z1 = tv_pds_stencil_step_xla(x, z0, z1, g, **KW)
+    np.testing.assert_allclose(np.asarray(st["x"]), np.asarray(x), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(np.asarray(st["z0"]), np.asarray(z0), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(np.asarray(st["z1"]), np.asarray(z1), rtol=rtol, atol=atol)
 
 
 def test_aniso_mega2_matches_oracle(rng):
-    from tests.test_kernels import _mega2_problem
-    from pycsou_tpu.kernels.tv import tv_pds_mega2_step
-
-    H, W = 64, 384
-    gram, B, C, F, corr_of = _mega2_problem(rng, H, W, 9)
-    x = jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
-    z = jnp.asarray(rng.standard_normal((2, H, W)), jnp.float32) * 0.1
-    z = z.at[0, -1].set(0.0).at[1, :, -1].set(0.0)
-    atb = jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
-    g_ref = 2.0 * (gram.apply(x) - atb)
-    x2, z2 = tv_pds_stencil_step_xla(x, z, g_ref, **KW)
-    x1, za, zb, _ = tv_pds_mega2_step(x, z[0], z[1], atb, corr_of(x), B, C, F, interpret=True, **KW)
-    np.testing.assert_allclose(np.asarray(x1), np.asarray(x2), rtol=3e-5, atol=3e-6)
-    np.testing.assert_allclose(np.asarray(jnp.stack([za, zb])), np.asarray(z2), rtol=3e-5, atol=3e-6)
+    """Rank-1 PSF (banded Gram route): one step == the oracle."""
+    ax = np.arange(9) - 4
+    filt = np.outer(np.exp(-(ax**2) / 8.0), np.exp(-(ax**2) / 3.0)).astype(np.float32)
+    _solver_vs_oracle(rng, filt / filt.sum(), 64, 384, 1, 3e-5, 3e-6)
 
 
 def test_aniso_mega3_matches_two_oracle_iterations(rng):
-    from pycsou_tpu.kernels.tv import (
-        make_mega2_lane_plan,
-        make_mega3_corr_mats,
-        make_mega_band,
-        tv_pds_mega3_step,
-    )
-    from pycsou_tpu.ops.conv import Convolve2D, SeparableConvGram2D
-
-    H, W, K = 64, 384, 9
-    ax = np.arange(K) - K // 2
+    """Rank-1 PSF: two chained steps == two oracle iterations."""
+    ax = np.arange(9) - 4
     filt = np.outer(np.exp(-(ax**2) / 8.0), np.exp(-(ax**2) / 3.0)).astype(np.float32)
-    filt /= filt.sum()
-    A = Convolve2D((H, W), filt)
-    gram = A.gram
-    assert isinstance(gram, SeparableConvGram2D)
-    R = 32
-    B = jnp.asarray(make_mega_band(gram.g_rows_acorr, r=R))
-    C, F = make_mega2_lane_plan(gram.g_cols_taps, W)
-    _, L_r, _, _ = gram.g_meta
-    Et, Eb = make_mega3_corr_mats(gram.g_rows_E, L_r)
-    x = jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
-    z = jnp.zeros((2, H, W), jnp.float32)
-    atb = jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
-    xm, z0m, z1m, _ = tv_pds_mega3_step(
-        x, z[0], z[1], atb, B, jnp.asarray(C), jnp.asarray(F),
-        jnp.asarray(Et), jnp.asarray(Eb), mega_r=R, interpret=True, **KW
-    )
-    x_o, z_o = x, z
-    for _ in range(2):
-        g = 2.0 * (gram.apply(x_o) - atb)
-        x_o, z_o = tv_pds_stencil_step_xla(x_o, z_o, g, **KW)
-    np.testing.assert_allclose(np.asarray(xm), np.asarray(x_o), rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(z0m), np.asarray(z_o[0]), rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(z1m), np.asarray(z_o[1]), rtol=1e-4, atol=1e-5)
+    _solver_vs_oracle(rng, filt / filt.sum(), 64, 384, 2, 1e-4, 1e-5)
 
 
 def test_aniso_megar_matches_oracle(rng):
-    from pycsou_tpu.kernels.tvr import make_megar_plan, tv_pds_megar_step
-    from pycsou_tpu.ops.conv import Convolve2D, lowrank_factors
-
-    H, W = 96, 384
+    """Rank-2 PSF (FFT Gram route): one step == the oracle."""
     u = rng.standard_normal((9, 2)) * 0.3
     v = rng.standard_normal((7, 2)) * 0.3
     filt = (u @ v.T).astype(np.float32)
-    filt /= np.abs(filt).sum()
-    fac = lowrank_factors(filt)
-    Bf, Cf, Ba, Ca, R = make_megar_plan(fac[0], fac[1], (H, W))
-    A = Convolve2D((H, W), filt, method="fft")
-    atb = A.adjoint(jnp.asarray(rng.standard_normal((H, W)), jnp.float32))
-    x = jnp.asarray(np.abs(rng.standard_normal((H, W))), jnp.float32)
-    z0 = z1 = jnp.zeros((H, W), jnp.float32)
-    xm, z0m, z1m, _ = tv_pds_megar_step(
-        x, z0, z1, atb, Bf, Cf, Ba, Ca, mega_r=R, interpret=True, **KW
-    )
-    g = 2.0 * (A.adjoint(A.apply(x)) - atb)
-    x_r, z_r = tv_pds_stencil_step_xla(x, jnp.stack([z0, z1]), g, **KW)
-    np.testing.assert_allclose(np.asarray(xm), np.asarray(x_r), rtol=3e-4, atol=3e-5)
-    np.testing.assert_allclose(np.asarray(z0m), np.asarray(z_r[0]), rtol=3e-4, atol=3e-5)
-    np.testing.assert_allclose(np.asarray(z1m), np.asarray(z_r[1]), rtol=3e-4, atol=3e-5)
+    _solver_vs_oracle(rng, filt / np.abs(filt).sum(), 96, 384, 1, 3e-4, 3e-5)
 
 
 def test_fused_anisotropic_tv_matches_generic(rng):
@@ -174,13 +160,13 @@ def test_tv_solver_aniso_converges(rng):
 
 def test_aniso_objective_uses_l1_term(rng):
     """objective() with isotropic=False scores sum|dx| + sum|dy|, the
-    functional the anisotropic engines actually minimise (regression: it
+    functional the anisotropic solver actually minimises (regression: it
     once always scored the L21 term)."""
     from pycsou_tpu.ops.diff import fdiff_forward
     from pycsou_tpu.opt.tv import TVDeconvolution
 
     y = jnp.asarray(rng.standard_normal((16, 16)), jnp.float32)
-    s = TVDeconvolution((16, 16), y, 0.2, nonneg=False, isotropic=False, use_pallas=False)
+    s = TVDeconvolution((16, 16), y, 0.2, nonneg=False, isotropic=False)
     x = jnp.asarray(rng.standard_normal((16, 16)), jnp.float32)
     dx, dy = fdiff_forward(x, 0), fdiff_forward(x, 1)
     want = float(jnp.sum((x - y) ** 2) + 0.2 * (jnp.sum(jnp.abs(dx)) + jnp.sum(jnp.abs(dy))))

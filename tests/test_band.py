@@ -1,5 +1,5 @@
 """Unit tests for the banded-convolution engine (kernels/band.py): the
-block-bidiagonal MXU form, the channel-conv lane form, and the exact Gram
+block-bidiagonal matmul form, the channel-conv lane form, and the exact Gram
 plans — against brute-force numpy convolution (the reference's semantics,
 /root/reference/pycsou/linop/conv.py:159-162 zero-boundary 'same')."""
 import jax.numpy as jnp

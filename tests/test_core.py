@@ -305,7 +305,7 @@ def test_run_fixed_growth_recompiles_at_most_once():
     recompile (geometric history growth).  Round 3 regression: linear
     per-call padding produced a fresh history SHAPE on every call, so the
     benchmark recompiled _run_fixed inside every timed chunk and the
-    driver-recorded headline halved (BENCH_r03: 576 vs ~1185 iters/s)."""
+    measured headline rate halved."""
     import jax.numpy as jnp
 
     from pycsou_tpu.core.solver import IterativeSolver, _run_fixed

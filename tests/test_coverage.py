@@ -143,7 +143,7 @@ def test_circular_conv_damped_pinv(rng):
 
 
 def test_solver_determinism(rng):
-    """Two identical runs produce bitwise-identical iterates (the TPU-native
+    """Two identical runs produce bitwise-identical iterates (the on-device
     stand-in for the reference's serial==parallel checks, SURVEY §5)."""
     from pycsou_tpu.func import L1Norm, SquaredL2Loss
     from pycsou_tpu.ops.basic import DenseOperator
@@ -229,7 +229,7 @@ def test_tv_solver_objective_tracking(rng):
 
     A = Convolve2D((H, W), h)
     y = A(jnp.abs(jarr(rng, H, W)))
-    s = TVDeconvolution((H, W), y, 0.01, filt=h, use_pallas=False, max_iter=150, min_iter=150,
+    s = TVDeconvolution((H, W), y, 0.01, filt=h, max_iter=150, min_iter=150,
                         accuracy_threshold=0.0)
     s.track_objective = True
     info = s.solve()

@@ -150,11 +150,10 @@ def test_no_fusion_on_mismatched_patterns(rng):
 
 
 def test_fused_with_shardings_drops_to_generic(rng):
-    """GSPMD sharding of a fused PDS that the distributed engines can NOT
-    take (tau != sigma) steps the generic expression (pallas does not
-    partition); iterates equal the single-device generic chain.  (A
-    routable request now re-dispatches onto the per-shard engines instead —
-    tests/test_generic_sharded.py.)"""
+    """GSPMD sharding of a fused PDS that the distributed solvers can NOT
+    take (tau != sigma) steps the generic expression; iterates equal the
+    single-device generic chain.  (A routable request re-dispatches onto
+    the distributed solvers instead — tests/test_generic_sharded.py.)"""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
     _, A, y = _problem(rng)
@@ -258,9 +257,11 @@ def test_apgd_no_fusion_on_mismatch(rng):
 
 
 def test_lasso_megaf_kernel_matches_gram_engine(rng):
-    """Interpret-mode fused FISTA engine == the XLA gram engine over a real
-    multi-iteration run (kernels/fista.py vs opt/lasso.py 'gram')."""
-    from pycsou_tpu.opt import LassoDeconvolution
+    """The LASSO solver (Gram-routed FISTA, opt/lasso.py) == the generic
+    APGD expression chain over a real multi-iteration run, iterates and
+    stopping-metric history alike."""
+    from pycsou_tpu.func.penalty import L1Norm
+    from pycsou_tpu.opt import APGD, LassoDeconvolution
 
     H, W = 64, 384
     g = np.exp(-((np.arange(5) - 2) ** 2) / 2.0)
@@ -269,21 +270,19 @@ def test_lasso_megaf_kernel_matches_gram_engine(rng):
     A = Convolve2D((H, W), h)
     x_true = jnp.asarray(np.abs(rng.standard_normal((H, W))), jnp.float32)
     y = A(x_true) + 0.01 * jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
-    mk = lambda up: LassoDeconvolution(
-        (H, W), y, 0.02, filt=h, use_pallas=up, max_iter=100
+    lasso = LassoDeconvolution((H, W), y, 0.02, filt=h, max_iter=100)
+    generic = APGD(
+        (H, W), F=SquaredL2Loss((H, W), data=y) * A, G=0.02 * L1Norm((H, W)),
+        tau=lasso.tau, max_iter=100, fuse=False,
     )
-    mega = mk("interpret")
-    gram = mk(False)
-    assert mega.engine == "megaf" and gram.engine == "gram"
-    st_m = mega.run_fixed(40)
-    st_g = gram.run_fixed(40)
+    st_m = lasso.run_fixed(40)
+    st_g = generic.run_fixed(40)
     np.testing.assert_allclose(
         np.asarray(st_m["x_temp"]), np.asarray(st_g["x_temp"]), rtol=1e-4, atol=5e-5
     )
     np.testing.assert_allclose(
         np.asarray(st_m["x"]), np.asarray(st_g["x"]), rtol=1e-4, atol=5e-5
     )
-    # kernel-epilogue stats drive the metric: histories agree too
     hist_m = np.asarray(st_m["history"])[5:40]
     hist_g = np.asarray(st_g["history"])[5:40]
     np.testing.assert_allclose(hist_m, hist_g, rtol=1e-3, atol=1e-6)
@@ -388,9 +387,8 @@ def test_cps_tv_denoise_fuses_and_matches_generic(rng):
     )
     fused, generic = mk(True), mk(False)
     assert isinstance(fused._fused, TVDeconvolution)
-    # denoise now routes through the masked (diagonal-Gram) engines with an
-    # all-ones mask — same mathematics, double-step sweepm2 kernel on TPU
-    assert not fused._fused.nonneg
+    # denoise: identity Gram, elementwise data gradient 2 (x - y)
+    assert not fused._fused.nonneg and fused._fused.gram is None
     st_f = fused.run_fixed(60)
     st_g = generic.run_fixed(60)
     np.testing.assert_allclose(

@@ -93,7 +93,7 @@ def test_conv2d_gram_auto_policy(rng):
     assert not ConvGram2D(Convolve2D((16, 64), h)).wrap   # 16 < 4*5
 
 
-# -------------------- banded MXU (separable) gram path --------------------
+# -------------------- banded matmul (separable) gram path --------------------
 
 
 def _gauss2d(k, s):
@@ -104,7 +104,7 @@ def _gauss2d(k, s):
 
 
 def test_gram_dispatch_lowrank_vs_full(rng):
-    """Gaussian PSFs route to the banded MXU gram; full-rank kernels keep
+    """Gaussian PSFs route to the banded matmul gram; full-rank kernels keep
     the FFT path."""
     from pycsou_tpu.ops.conv import ConvGram2D, SeparableConvGram2D
 

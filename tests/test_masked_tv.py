@@ -2,9 +2,10 @@
 
 ``min ||A x - y||^2 + lam TV(x)`` with A a sampling operator
 (Masking/DownSampling/SubSampling, reference sampling.py:125-196) has
-``A^H A = diag(A^H 1)`` — the fused 'sweepm' engine streams that diagonal
-and computes the whole PDS iteration in one kernel pass.  The expression
-matcher recognises ``SquaredL2Loss * Masking`` (etc.) and rewrites onto it.
+``A^H A = diag(A^H 1)`` — an elementwise data gradient, so the whole PDS
+iteration fuses into one XLA pass.  The expression matcher recognises
+``SquaredL2Loss * Masking`` (etc.) and rewrites onto TVDeconvolution's
+diagonal-Gram mode.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,32 +14,43 @@ import pytest
 from pycsou_tpu.kernels.tv import tv_pds_stencil_step_xla
 
 
+def _masked_pds(M, y, shape, lam, iso, nonneg, fuse):
+    from pycsou_tpu.func import NonNegativeOrthant, SquaredL2Loss
+    from pycsou_tpu.func.penalty import L1Norm, L21Norm
+    from pycsou_tpu.ops.diff import Gradient
+    from pycsou_tpu.opt import PDS
+
+    H, W = shape
+    pen = L21Norm((2, H, W), axis=0) if iso else L1Norm((2, H, W))
+    return PDS(
+        shape, F=SquaredL2Loss(M.codim_shape, data=y) * M,
+        G=NonNegativeOrthant(shape) if nonneg else None,
+        H=lam * pen, K=Gradient(shape), max_iter=200, fuse=fuse,
+    )
+
+
 @pytest.mark.parametrize("iso", [True, False])
 @pytest.mark.parametrize("nonneg", [True, False])
 def test_sweepm_kernel_matches_xla(rng, iso, nonneg):
-    from pycsou_tpu.kernels.tv import tv_pds_sweepm_step_stats
+    """Mask mode, isotropic or anisotropic, with or without the
+    nonnegativity prox: the fused TVDeconvolution == the unfused generic
+    PDS chain, primal and dual iterates, on a tile-unfriendly 64x256."""
+    from pycsou_tpu.ops.sampling import Masking
+    from pycsou_tpu.opt import TVDeconvolution
 
     H, W = 64, 256
-    kw = dict(tau=0.05, sigma=0.05, rho=0.9, lam=0.05, nonneg=nonneg, iso=iso)
-    x = jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
-    z = jnp.asarray(rng.standard_normal((2, H, W)), jnp.float32) * 0.1
-    z = z.at[0, -1].set(0.0).at[1, :, -1].set(0.0)
-    m = jnp.asarray((rng.random((H, W)) < 0.4).astype(np.float32))
-    atb = m * jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
-    g = 2.0 * (m * x - atb)
-    x2, z2 = tv_pds_stencil_step_xla(x, z, g, **kw)
-    x1, z0n, z1n, stats = tv_pds_sweepm_step_stats(
-        x, z[0], z[1], m, atb, interpret=True, **kw
-    )
-    np.testing.assert_allclose(np.asarray(x1), np.asarray(x2), rtol=3e-5, atol=3e-6)
-    np.testing.assert_allclose(np.asarray(z0n), np.asarray(z2[0]), rtol=3e-5, atol=3e-6)
-    np.testing.assert_allclose(np.asarray(z1n), np.asarray(z2[1]), rtol=3e-5, atol=3e-6)
-    want = [
-        float(jnp.sum((x1 - x) ** 2)), float(jnp.sum(x * x)),
-        float(jnp.sum((z0n - z[0]) ** 2)), float(jnp.sum(z[0] ** 2)),
-        float(jnp.sum((z1n - z[1]) ** 2)), float(jnp.sum(z[1] ** 2)),
-    ]
-    np.testing.assert_allclose(np.asarray(stats[0, :6]), want, rtol=1e-4)
+    keep = rng.random((H, W)) < 0.4
+    M = Masking((H, W), keep)
+    y = jnp.asarray(rng.standard_normal(int(keep.sum())), jnp.float32)
+    fused = _masked_pds(M, y, (H, W), 0.05, iso, nonneg, True)
+    generic = _masked_pds(M, y, (H, W), 0.05, iso, nonneg, False)
+    assert isinstance(fused._fused, TVDeconvolution) and fused._fused.mask is not None
+    assert fused._fused.iso == iso and fused._fused.nonneg == nonneg
+    st_f = fused.run_fixed(30)
+    st_g = generic.run_fixed(30)
+    np.testing.assert_allclose(np.asarray(st_f["x"]), np.asarray(st_g["x"]), rtol=1e-4, atol=1e-5)
+    z_f = np.stack([np.asarray(st_f["z0"]), np.asarray(st_f["z1"])])
+    np.testing.assert_allclose(z_f, np.asarray(st_g["z"]), rtol=1e-4, atol=1e-5)
 
 
 def test_masked_solver_matches_generic_pds(rng):
@@ -122,15 +134,13 @@ def test_mask_mode_validation():
     y = jnp.zeros((16, 16))
     m = jnp.ones((16, 16))
     # filt + mask is now the COMBINED (blur + mask) mode
-    s = TVDeconvolution((16, 16), y, 0.1, filt=np.ones((3, 3), np.float32),
-                        mask=m, use_pallas=False)
+    s = TVDeconvolution((16, 16), y, 0.1, filt=np.ones((3, 3), np.float32), mask=m)
     assert s.conv is not None and s.mask is not None
     with pytest.raises(ValueError, match="mask shape"):
         TVDeconvolution((16, 16), y, 0.1, mask=jnp.ones((8, 8)))
-    with pytest.raises(ValueError):
-        # sweepm needs a diagonal Gram (mask mode or denoise), not a conv
-        TVDeconvolution((16, 16), y, 0.1, filt=np.ones((3, 3), np.float32),
-                        stencil="sweepm", use_pallas=True)
+    with pytest.raises(ValueError, match="removed"):
+        # the masked stencil engines were removed: naming one raises
+        TVDeconvolution((16, 16), y, 0.1, mask=m, stencil="sweepm")
 
 
 def test_masked_objective_scores_observed_pixels_only(rng):
@@ -144,7 +154,7 @@ def test_masked_objective_scores_observed_pixels_only(rng):
     keep = rng.random((H, W)) < 0.5
     m = jnp.asarray(keep.astype(np.float32))
     y_img = m * jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
-    s = TVDeconvolution((H, W), y_img, 0.1, mask=m, nonneg=False, use_pallas=False)
+    s = TVDeconvolution((H, W), y_img, 0.1, mask=m, nonneg=False)
     x = jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
     dx, dy = fdiff_forward(x, 0), fdiff_forward(x, 1)
     want = float(
@@ -156,90 +166,71 @@ def test_masked_objective_scores_observed_pixels_only(rng):
 
 @pytest.mark.parametrize("iso", [True, False])
 def test_sweepm2_double_step_matches_two_single_steps(rng, iso):
-    """The two-iteration masked kernel == two sweepm steps == two XLA twin
-    steps, chained over 2 double-steps (ring coverage), stats measuring the
-    second iteration only."""
-    from pycsou_tpu.kernels.tv import tv_pds_sweepm2_step
+    """Two solver steps in mask mode == two explicit oracle iterations
+    (diagonal-Gram gradient + the XLA stencil), chained twice."""
+    from pycsou_tpu.opt.tv import TVDeconvolution
 
     H, W = 96, 256
-    kw = dict(tau=0.06, sigma=0.04, rho=0.9, lam=0.05, nonneg=True, iso=iso)
     m = jnp.asarray((rng.random((H, W)) < 0.4).astype(np.float32))
     atb = m * jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
-    x = jnp.asarray(np.abs(rng.standard_normal((H, W))), jnp.float32)
-    z = jnp.zeros((2, H, W), jnp.float32)
-    x_o, z_o = x, z
+    s = TVDeconvolution((H, W), atb, 0.05, mask=m, tau=0.06, sigma=0.04,
+                        isotropic=iso, max_iter=10)
+    kw = dict(tau=0.06, sigma=0.04, rho=0.9, lam=0.05, nonneg=True, iso=iso)
+    x_o = z0_o = z1_o = jnp.zeros((H, W), jnp.float32)
+    st = s._wrap_state(s.initial_state())
     for _ in range(2):
-        x1m, z0m, z1m, stats = tv_pds_sweepm2_step(
-            x, z[0], z[1], m, atb, interpret=True, **kw
-        )
-        # oracle: two generic iterations; remember the FIRST for the stats
-        g = 2.0 * (m * x_o - atb)
-        x_mid, z_mid = tv_pds_stencil_step_xla(x_o, z_o, g, **kw)
-        g = 2.0 * (m * x_mid - atb)
-        x_o, z_o = tv_pds_stencil_step_xla(x_mid, z_mid, g, **kw)
-        np.testing.assert_allclose(np.asarray(x1m), np.asarray(x_o), rtol=1e-4, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(z0m), np.asarray(z_o[0]), rtol=1e-4, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(z1m), np.asarray(z_o[1]), rtol=1e-4, atol=1e-5)
-        want = [
-            float(jnp.sum((x_o - x_mid) ** 2)), float(jnp.sum(x_mid**2)),
-            float(jnp.sum((z_o[0] - z_mid[0]) ** 2)), float(jnp.sum(z_mid[0] ** 2)),
-            float(jnp.sum((z_o[1] - z_mid[1]) ** 2)), float(jnp.sum(z_mid[1] ** 2)),
-        ]
-        np.testing.assert_allclose(np.asarray(stats[0, :6]), want, rtol=1e-3, atol=1e-6)
-        x, z = x1m, jnp.stack([z0m, z1m])
+        st = s.step(s.step(st))
+        for _ in range(2):
+            g = 2.0 * (m * x_o - atb)
+            x_o, z0_o, z1_o = tv_pds_stencil_step_xla(x_o, z0_o, z1_o, g, **kw)
+        np.testing.assert_allclose(np.asarray(st["x"]), np.asarray(x_o), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(np.asarray(st["z0"]), np.asarray(z0_o), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(np.asarray(st["z1"]), np.asarray(z1_o), rtol=1e-5, atol=1e-6)
 
 
 def test_masked_solver_sweepm2_iteration_units(rng):
-    """The sweepm2 engine keeps it/history in ITERATION units
-    (iters_per_step=2 bookkeeping) and solves to the same answer as the
-    XLA chain."""
+    """Mask mode runs one iteration per step (it/history in iteration
+    units) and solves to the same answer as the generic chain; the removed
+    double-step engine name raises instead of degrading."""
     from pycsou_tpu.opt.tv import TVDeconvolution
 
     H, W = 64, 256
     keep = rng.random((H, W)) < 0.6
     m = jnp.asarray(keep.astype(np.float32))
     y_img = m * jnp.asarray(np.abs(rng.standard_normal((H, W))), jnp.float32)
-    # kernel-level parity is covered in interpret mode above; the solver's
-    # STATIC bookkeeping (engine choice + iteration units) checks here
-    s2 = TVDeconvolution((H, W), y_img, 0.05, mask=m, stencil="sweepm2",
-                         use_pallas=True, max_iter=60)
-    assert s2.stencil_mode == "sweepm2" and s2.iters_per_step == 2
-    # explicit sweepm2 on a 1-tile image raises instead of degrading
+    s = TVDeconvolution((H, W), y_img, 0.05, mask=m, max_iter=60)
+    st = s.run_fixed(60)
+    assert int(st["it"]) == 60
     with pytest.raises(ValueError, match="sweepm2"):
-        TVDeconvolution((8, 256), jnp.zeros((8, 256)), 0.05,
-                        mask=jnp.ones((8, 256)), stencil="sweepm2",
-                        use_pallas=True)
+        TVDeconvolution((H, W), y_img, 0.05, mask=m, stencil="sweepm2")
 
 
 def test_megarm_kernel_matches_oracle(rng):
-    """Masked megar cascade (forward sweep -> data mask -> adjoint sweep ->
-    stencil): chained parity vs the XLA oracle g = 2(A^H(m * A x) - atb)."""
-    from pycsou_tpu.kernels.tvr import make_megar_plan, tv_pds_megar_step
-    from pycsou_tpu.ops.conv import Convolve2D, lowrank_factors
+    """Combined blur + mask mode with a rank-2 PSF: chained solver steps ==
+    the explicit oracle g = 2(A^H(m * A x) - atb) + the XLA stencil."""
+    from pycsou_tpu.ops.conv import Convolve2D
+    from pycsou_tpu.opt.tv import TVDeconvolution
 
     H, W = 96, 384
     u = rng.standard_normal((9, 2)) * 0.3
     v = rng.standard_normal((7, 2)) * 0.3
     filt = (u @ v.T).astype(np.float32)
     filt /= np.abs(filt).sum()
-    fac = lowrank_factors(filt)
-    Bf, Cf, Ba, Ca, R = make_megar_plan(fac[0], fac[1], (H, W))
     A = Convolve2D((H, W), filt, method="fft")
     m = jnp.asarray((rng.random((H, W)) < 0.5).astype(np.float32))
-    atb = A.adjoint(m * jnp.asarray(rng.standard_normal((H, W)), jnp.float32))
+    y_img = m * jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
+    s = TVDeconvolution((H, W), y_img, 0.1, filt=filt, mask=m, tau=0.05, max_iter=10)
+    atb = A.adjoint(y_img)
     kw = dict(tau=0.05, sigma=0.05, rho=0.9, lam=0.1, nonneg=True)
-    x = jnp.asarray(np.abs(rng.standard_normal((H, W))), jnp.float32)
-    z0 = z1 = jnp.zeros((H, W), jnp.float32)
+    x = z0 = z1 = jnp.zeros((H, W), jnp.float32)
+    st = s._wrap_state(s.initial_state())
     for _ in range(3):
-        xm, z0m, z1m, _ = tv_pds_megar_step(
-            x, z0, z1, atb, Bf, Cf, Ba, Ca, mega_r=R, interpret=True, mask=m, **kw
-        )
+        st = s.step(st)
         g = 2.0 * (A.adjoint(m * A.apply(x)) - atb)
-        xr, zr = tv_pds_stencil_step_xla(x, jnp.stack([z0, z1]), g, **kw)
-        np.testing.assert_allclose(np.asarray(xm), np.asarray(xr), rtol=3e-4, atol=3e-5)
-        np.testing.assert_allclose(np.asarray(z0m), np.asarray(zr[0]), rtol=3e-4, atol=3e-5)
-        np.testing.assert_allclose(np.asarray(z1m), np.asarray(zr[1]), rtol=3e-4, atol=3e-5)
-        x, z0, z1 = xm, z0m, z1m
+        x, z0, z1 = tv_pds_stencil_step_xla(x, z0, z1, g, **kw)
+        np.testing.assert_allclose(np.asarray(st["x"]), np.asarray(x), rtol=3e-4, atol=3e-5)
+        np.testing.assert_allclose(np.asarray(st["z0"]), np.asarray(z0), rtol=3e-4, atol=3e-5)
+        np.testing.assert_allclose(np.asarray(st["z1"]), np.asarray(z1), rtol=3e-4, atol=3e-5)
 
 
 def test_blurred_masking_superres_matches_generic_pds(rng):
@@ -294,11 +285,10 @@ def test_combined_mode_validation(rng):
     hf = np.abs(rng.standard_normal((5, 5))).astype(np.float32)  # full rank
     hf /= hf.sum()
     with pytest.raises(ValueError, match="megarm"):
-        TVDeconvolution((32, 32), y, 0.1, filt=hf, mask=m, stencil="megarm",
-                        use_pallas=True)
-    # full-rank PSF + mask: XLA chain fallback, still correct mode
-    s = TVDeconvolution((32, 32), y, 0.1, filt=hf, mask=m, use_pallas=False)
-    assert s.conv is not None and s.stencil_mode == "xla"
+        TVDeconvolution((32, 32), y, 0.1, filt=hf, mask=m, stencil="megarm")
+    # full-rank PSF + mask: the combined mode, FFT convolutions
+    s = TVDeconvolution((32, 32), y, 0.1, filt=hf, mask=m)
+    assert s.conv is not None and s.conv.method == "fft"
 
 
 def test_near_miss_note_knows_masked_conv_F(rng, caplog):

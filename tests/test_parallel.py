@@ -1,5 +1,5 @@
 """Sharded == single-device equality tests on the virtual 8-device CPU mesh
-(the TPU-native version of the reference's serial-vs-parallel doctests,
+(the on-device version of the reference's serial-vs-parallel doctests,
 SURVEY §4)."""
 import jax
 import jax.numpy as jnp
@@ -430,8 +430,7 @@ def test_distributed_tv_rejects_multiaxis_mesh(rng):
 
 def test_distributed_aniso_matches_single_device(rng):
     """DistributedTVDeconv2D(isotropic=False) == the single-device
-    anisotropic solver across the mesh (XLA chain; the fused per-shard
-    engines thread the same static iso flag into the kernels)."""
+    anisotropic solver across the mesh."""
     import numpy as np
 
     from pycsou_tpu.opt.tv import TVDeconvolution
@@ -446,7 +445,7 @@ def test_distributed_aniso_matches_single_device(rng):
     dist = DistributedTVDeconv2D((H, W), h, y, lam=0.05, nonneg=True,
                                  mesh=mesh, isotropic=False)
     single = TVDeconvolution((H, W), jnp.asarray(y), 0.05, filt=h, nonneg=True,
-                             isotropic=False, use_pallas=False, max_iter=100)
+                             isotropic=False, max_iter=100)
     st_d = dist.run_fixed(30)
     st_s = single.run_fixed(30)
     np.testing.assert_allclose(
@@ -456,8 +455,7 @@ def test_distributed_aniso_matches_single_device(rng):
 
 def test_distributed_mask_mode_matches_single_device(rng):
     """DistributedTVDeconv2D(mask=...) — the distributed inpainting mode —
-    equals the single-device diagonal-Gram solver across the mesh (XLA
-    chain on CPU; sweepsp carries the same grad on TPU)."""
+    equals the single-device diagonal-Gram solver across the mesh."""
     import numpy as np
 
     from pycsou_tpu.opt.tv import TVDeconvolution
@@ -472,7 +470,7 @@ def test_distributed_mask_mode_matches_single_device(rng):
                                  mesh=mesh, mask=m)
     assert dist.mask is not None and dist.filt is None
     single = TVDeconvolution((H, W), jnp.asarray(y_img), 0.05, mask=jnp.asarray(m),
-                             nonneg=True, use_pallas=False, max_iter=100)
+                             nonneg=True, max_iter=100)
     st_d = dist.run_fixed(30)
     st_s = single.run_fixed(30)
     np.testing.assert_allclose(
@@ -500,9 +498,9 @@ def test_spatial2d_mask_mode_matches_single_device(rng):
     mesh = make_mesh((2, 4), ("sp0", "sp1"))
     dist = Spatial2DTVDeconv2D((H, W), None, y_img, lam=0.05, nonneg=True,
                                mesh=mesh, mask=m)
-    assert dist.mask is not None and dist._sp_engine == ""
+    assert dist.mask is not None
     single = TVDeconvolution((H, W), jnp.asarray(y_img), 0.05, mask=jnp.asarray(m),
-                             nonneg=True, use_pallas=False, max_iter=100)
+                             nonneg=True, max_iter=100)
     st_d = dist.run_fixed(30)
     st_s = single.run_fixed(30)
     np.testing.assert_allclose(

@@ -255,53 +255,3 @@ def test_metric_every_stops_on_sampled_metric(rng):
     assert info.converged
     assert info.n_iter % 4 == 0  # can only stop on a sampled iteration
     assert info.history[info.n_iter - 1] <= 1e-5
-
-
-def test_iters_per_step_bookkeeping(rng):
-    """A solver whose step() performs TWO iterations (iters_per_step=2, the
-    mega3 kernel's contract) produces the same iterates as the single-step
-    twin, with it/history in ITERATION units and NaN rows at the skipped
-    indices."""
-    import jax.numpy as jnp
-
-    from pycsou_tpu._module import static_field
-    from pycsou_tpu.core.solver import IterativeSolver
-
-    class Single(IterativeSolver):
-        y: object = None
-
-        def initial_state(self):
-            return {"x": jnp.zeros(8, jnp.float32)}
-
-        def step(self, state):
-            return {"x": 0.5 * (state["x"] + self.y)}
-
-    class Double(Single):
-        def step(self, state):
-            x = state["x"]
-            for _ in range(2):
-                x = 0.5 * (x + self.y)
-            return {"x": x}
-
-    y = jnp.asarray(rng.standard_normal(8), jnp.float32)
-    s1 = Single(max_iter=40, min_iter=4, tol=-1.0)
-    s1.y = y
-    s2 = Double(max_iter=40, min_iter=4, tol=-1.0)
-    s2.y = y
-    s2.iters_per_step = 2
-
-    st1 = s1.run_fixed(40)
-    st2 = s2.run_fixed(40)
-    assert int(st1["it"]) == 40 and int(st2["it"]) == 40
-    np.testing.assert_allclose(np.asarray(st1["x"]), np.asarray(st2["x"]), rtol=1e-6)
-    # history rows land at iteration indices; even rows of the double solver
-    # are never measured (each measurement spans a whole 2-iteration step,
-    # so the VALUES are 2-step improvements, not the single-step ones)
-    h2 = np.asarray(st2["history"])[:40]
-    assert np.isnan(h2[0]) and not np.isnan(h2[1])
-    assert np.all(np.isnan(h2[2::2])) and not np.any(np.isnan(h2[1::2]))
-
-    i1 = s1.solve()
-    i2 = s2.solve()
-    assert i1.n_iter == 40 and i2.n_iter == 40
-    np.testing.assert_allclose(np.asarray(i1["x"]), np.asarray(i2["x"]), rtol=1e-6)

@@ -17,7 +17,7 @@ def test_tv_solver_matches_generic_pds(rng):
     y = A(x_true) + 0.01 * jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
     lam = 0.05
 
-    tuned = TVDeconvolution((H, W), y, lam, filt=h, nonneg=True, use_pallas=False, max_iter=100)
+    tuned = TVDeconvolution((H, W), y, lam, filt=h, nonneg=True, max_iter=100)
     state = tuned.run_fixed(60)
 
     F = SquaredL2Loss((H, W), data=y) * A
@@ -34,7 +34,7 @@ def test_tv_solver_matches_generic_pds(rng):
 def test_tv_denoise_mode(rng):
     H, W = 32, 32
     y = jnp.asarray(rng.standard_normal((H, W)), jnp.float32)
-    s = TVDeconvolution((H, W), y, lam=0.3, filt=None, nonneg=False, use_pallas=False,
+    s = TVDeconvolution((H, W), y, lam=0.3, filt=None, nonneg=False,
                         max_iter=400, accuracy_threshold=1e-7, min_iter=50)
     info = s.solve()
     assert s.objective(info["x"]) < s.objective(jnp.zeros((H, W))) + 1e-3
